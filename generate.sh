@@ -21,7 +21,7 @@ METHOD=euler_a
 SCHED=uniform
 SAMPOPT=
 
-# Leave empty to use the best backend (TPU when available).
+# Leave empty to use the best backend (the GPU when available).
 BACKEND=
 
 # Change to the path of the model weights

@@ -1,8 +1,8 @@
-/* mlimgsynth TPU - stable C ABI.
+/* MLImgSynth-TPU - stable C ABI.
  *
  * ABI-compatible with the reference libmlimgsynth interface
  * (reference: include/mlimgsynth.h) so existing C/ctypes clients work
- * unchanged; the implementation runs the TPU-native JAX core through an
+ * unchanged; the implementation runs the JAX core through an
  * embedded Python interpreter (src shim: native/mlis_shim.c).
  *
  * Sessions serialize their pipeline entry points internally; one

@@ -1,9 +1,10 @@
-"""mlimgsynth_tpu: TPU-native Stable Diffusion inference framework.
+"""mlimgsynth_tpu: a JAX Stable Diffusion inference framework.
 
 A from-scratch JAX/XLA/Pallas rebuild with the capabilities of mlimgsynth
 (SD1/SD2/SDXL txt2img, img2img, inpainting, LoRA, TAE, k-diffusion samplers)
-designed TPU-first: NHWC bf16 compute, fully-jitted sampling loops, batched
-CFG, Pallas flash attention, and multi-chip sharding via jax.sharding.
+designed for one accelerator or a mesh of them: NHWC bf16 compute,
+fully-jitted sampling loops, batched CFG, fused attention, and multi-device
+sharding via jax.sharding.
 """
 
 __version__ = "0.1.0"

@@ -17,7 +17,7 @@ from typing import List, Optional
 import numpy as np
 
 HELP = """mlimgsynth-tpu v{version}
-Image synthesis using AI, TPU-native (JAX/XLA/Pallas).
+Image synthesis using AI, on JAX/XLA.
 Currently Stable Diffusion 1, 2, XL, XL-refiner, 3 / 3.5 (MMDiT) and
 Flux.1 are implemented.
 
@@ -96,21 +96,21 @@ Models and backend:
                        enables; base pass at --image-dim).
   --hires-denoise F    Highres refine-pass strength (default 0.7).
   --hires-steps INT    Highres refine-pass steps (0 = same as --steps).
-  -b --backend NAME    Computation backend (tpu, cpu; default: best).
+  -b --backend NAME    Computation backend (gpu, cpu; default: best).
   -t --threads INT     Host thread count (accepted for compatibility).
   --unet-split BOOL    Stage-wise weight residency to reduce memory usage.
   --vae-tile INT       Tiled VAE encode/decode with NxN pixel tiles.
   --weight-type NAME   Weight dtype (f32, f16/bf16, q8_0, ...).
-  --batch-size INT     Images per batch (TPU-native batching).
+  --batch-size INT     Images per batch (one batched device program).
   --dp INT             Data-parallel devices: shards the batch over a device
-                       mesh (batch-size must be a multiple; TPU multi-chip).
+                       mesh (batch-size must be a multiple; multi-device).
   --tp INT             Tensor-parallel devices: Megatron-style sharding of
                        the UNet attention/FF matmuls over the mesh.
   --sp INT             Sequence-parallel devices: shards the attention token
-                       axis over the mesh (ring attention over ICI; for the
+                       axis over the mesh (ring attention over the mesh; for the
                        long-sequence DiT families).
   --pp INT             Pipeline-parallel stages: cuts the MMDiT block stack
-                       into stages with microbatches streamed over ICI
+                       into stages with microbatches streamed between devices
                        (each stage holds 1/pp of the block weights).
 
 Sampling:
@@ -510,7 +510,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
 
     # per-step progress forces step-at-a-time dispatch; skip it when quiet
-    # so the fused single-dispatch loop runs (much faster on remote TPU)
+    # so the fused single-dispatch loop runs
     if state.verbosity >= 0:
         session.option_set("callback", _progress_printer(state))
 

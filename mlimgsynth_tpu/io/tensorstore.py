@@ -1,6 +1,6 @@
 """Checkpoint tensor store: lazy, mmap-backed safetensors / GGUF access.
 
-TPU-native counterpart of the reference tensorstore
+Counterpart of the reference tensorstore
 (reference: src/ccompute/tensorstore.{h,c}, tensorstore_safet.c,
 tensorstore_gguf.c):
 
@@ -306,8 +306,8 @@ class TensorStore:
                           names: Optional[List[str]] = None) -> None:
         """Write entries to a new safetensors file, optionally converting all
         float tensors to ``dtype`` (reference: tstore_write_safet +
-        tsu_dtype_convert, main_tstore_util.c:141-199)."""
-        align = 32
+        tsu_dtype_convert, main_tstore_util.c:141-199).  Tensor data is
+        packed back to back, as the safetensors format requires."""
         names = names if names is not None else self.names()
         header: Dict[str, dict] = {}
         if self.meta:
@@ -328,7 +328,6 @@ class TensorStore:
                     # block-quantized; keep them in f16
                     out_dt = "f16"
             size = dtype_size(out_dt, e.n_elem)
-            offset = (offset + align - 1) // align * align
             header[name] = {
                 "dtype": _SAFET_DTYPES_INV.get(out_dt, out_dt.upper()),
                 "shape": list(e.shape),
@@ -338,8 +337,7 @@ class TensorStore:
             offset += size
 
         hjson = json.dumps(header, separators=(",", ":")).encode("utf-8")
-        pad = (-(len(hjson) + 8)) % align
-        hjson += b" " * pad
+        hjson += b" " * ((-len(hjson)) % 8)
         with open(path, "wb") as f:
             f.write(struct.pack("<Q", len(hjson)))
             f.write(hjson)
@@ -405,6 +403,25 @@ def write_gguf(store: "TensorStore", path: str,
 
 
 TensorStore.write_gguf = write_gguf
+
+
+_NP_TO_NAME = {np.dtype(v): k for k, v in _NP_DTYPES.items()}
+
+
+def save_arrays(arrays: Dict[str, np.ndarray], path: str,
+                dtype: Optional[str] = None) -> None:
+    """Write numpy arrays to a safetensors file through
+    :meth:`TensorStore.write_safetensors` (no ``safetensors`` package
+    needed).  ``dtype`` ('f16', 'bf16', ...) converts every float tensor."""
+    st = TensorStore()
+    for name, a in arrays.items():
+        a = np.ascontiguousarray(a)
+        dt = _NP_TO_NAME[a.dtype]
+        st.tensors[name] = TensorEntry(name=name, dtype=dt,
+                                       shape=tuple(a.shape), offset=0,
+                                       size=a.nbytes, store=st)
+        st.cache[name] = a
+    st.write_safetensors(str(path), dtype=dtype)
 
 
 def convert_bytes(e: TensorEntry, out_dt: str) -> bytes:

@@ -2,13 +2,13 @@
 
 The reference builds ggml graphs through a declarative block stack that both
 names parameters hierarchically and emits ops (reference: src/mlblock.c,
-src/mlblock_nn.c).  The TPU-native equivalent is a functional param *context*:
+src/mlblock_nn.c).  The JAX equivalent is a functional param *context*:
 blocks are plain functions that request parameters by hierarchical name from a
 ``Ctx``; run under ``jax.eval_shape`` with a recording context, the same code
 yields the model's full parameter spec (names, shapes, layout kinds) used by
 the checkpoint loader — one definition, no spec drift.
 
-Layout conventions (TPU-first, unlike the reference's ggml/NCHW):
+Layout conventions (unlike the reference's ggml/NCHW):
 * activations NHWC, linear weights ``[d_in, d_out]``, conv weights HWIO.
 * matmuls/convs run in the context compute dtype (bf16 by default);
   normalizations and softmax accumulate in float32.
@@ -42,7 +42,7 @@ class ParamSpec:
 class Ctx:
     """Parameter provider.
 
-    ``params`` maps internal names to arrays already in TPU layout.  When
+    ``params`` maps internal names to arrays already in device layout.  When
     ``record`` is set, requested params are recorded into ``spec`` and zeros
     are returned (use under ``jax.eval_shape`` to build a model spec without
     compute).
@@ -112,7 +112,7 @@ def linear(ctx: Ctx, pre: str, x, n_out: int, bias: bool = True):
 
     When the param dict holds a quantized pair (``.weight_q8`` int8 or
     ``.weight_q4`` packed nibbles, + ``.weight_scale``), the weight-only
-    quantized path runs instead (Pallas dequant-matmul on TPU; see
+    quantized path runs instead (dequantize, then dot; see
     ops/q8_matmul.py, ops/q4_matmul.py)."""
     if not ctx.record and (pre + ".weight_q8") in ctx.params:
         from ..ops.q8_matmul import q8_dot
@@ -163,7 +163,7 @@ def layer_norm(ctx: Ctx, pre: str, x, eps: float = 1e-5,
     # Two-pass variance: E[x^2]-mean^2 would fuse into one read of x but its
     # cancellation error grows with mean^2/var, which SD VAE decoder
     # activations are known to push >>1; the shifted form is exact-mean
-    # robust and measured e2e-neutral (docs/BENCH.md).
+    # robust.
     mean = jnp.mean(x, axis=-1, keepdims=True, dtype=jnp.float32)
     var = jnp.mean(jnp.square(x.astype(jnp.float32) - mean), axis=-1,
                    keepdims=True)
@@ -183,9 +183,8 @@ def group_norm(ctx: Ctx, pre: str, x, n_grp: int = 32, eps: float = 1e-6,
     x: [N,H,W,C]; normalizes over (H,W,C/g) per group.
 
     Statistics accumulate in float32; the normalization arithmetic stays in
-    the activation dtype (the output is that dtype regardless, and avoiding
-    the f32 materialization of the full activation saves ~13% of an SDXL
-    UNet step — see docs/BENCH.md)."""
+    the activation dtype (the output is that dtype regardless, and this
+    avoids an f32 materialization of the full activation)."""
     import os
     if "gn" in os.environ.get("MLIS_ABLATE", ""):
         # perf-attribution mode: scale-only, skips the reduction passes
@@ -196,7 +195,7 @@ def group_norm(ctx: Ctx, pre: str, x, n_grp: int = 32, eps: float = 1e-6,
     n, h, w, c = x.shape
     xg = x.reshape(n, h * w, n_grp, c // n_grp)
     # two-pass shifted variance (see layer_norm): robust when mean^2/var >> 1
-    # (VAE decoder activations), measured e2e-neutral vs the one-pass form
+    # (VAE decoder activations)
     mean = jnp.mean(xg, axis=(1, 3), keepdims=True, dtype=jnp.float32)
     var = jnp.mean(jnp.square(xg.astype(jnp.float32) - mean), axis=(1, 3),
                    keepdims=True)
@@ -227,9 +226,9 @@ def upsample(ctx: Ctx, pre: str, x, ch_out: int):
     (K4[s,t] = sum_{a,b in {0,1}} W[s-a,t-b]): nearest-up is linear, so the
     composition is exact up to fp summation order, but XLA's phase
     decomposition then computes 4 MACs/output instead of 9 (4/9 the FLOPs)
-    and the 2x-upsampled intermediate never touches HBM.  Measured VAE-512
-    decode 24.6 -> 20.8 ms on v5e (docs/BENCH.md r3).  Opt out with
-    MLIS_FUSED_UPSAMPLE=0."""
+    and the 2x-upsampled intermediate is never written to device memory.
+    Its time on the GPU against the plain upsample is not measured yet.
+    Opt out with MLIS_FUSED_UPSAMPLE=0."""
     import os
     ch_in = x.shape[-1]
     if os.environ.get("MLIS_FUSED_UPSAMPLE", "1") not in ("0", "false",
@@ -289,28 +288,14 @@ def feed_forward(ctx: Ctx, pre: str, x, d_out: int, mult: int = 4):
     return linear(ctx, pre + ".net.2", x, d_out)
 
 
-def _attn_use_einsum(ctx: Ctx, pre: str) -> bool:
-    """Head-split-fused projections: instead of project -> reshape ->
-    transpose (which XLA lowers to slow conv-shuffles on TPU for
-    non-128-aligned d_head), emit one dot_general per projection that
-    produces [N, H, S, D] directly.  Opt out with MLIS_ATTN_EINSUM=0.
-    Quantized (int8) projections keep the linear() path."""
-    import os
-    if os.environ.get("MLIS_ATTN_EINSUM", "1") in ("0", "false", "no"):
-        return False
-    # ALL four projections must be unquantized: under q8, k/v projections
-    # (K = n_ctx, often 128-divisible) can be int8 while q_proj (K = d_embed)
-    # is not — mixed cases must take the linear() path throughout.
-    return ctx.record or all(
-        f"{pre}.{w}.weight" in ctx.params
-        for w in ("q_proj", "k_proj", "v_proj", "out_proj"))
-
-
 def attn_mhead(ctx: Ctx, pre: str, q, k, v, d_out: int, d_embed: int,
                n_head: int, mask: bool = False, bias: bool = False,
                bias_out: bool = True, identity: bool = False):
     """ref: mlb_attn_mhead (src/mlblock_nn.c:190-231).
     q: [N, Sq, *], k/v: [N, Sk, *]; returns [N, Sq, d_out].
+
+    The head split and merge are reshapes: the projections emit
+    [N, S, H, D], the layout :func:`attention` takes.
 
     ``identity``: perturbed-attention mode — the attention map is replaced
     by the identity (each token attends only to itself), so the output is
@@ -323,67 +308,14 @@ def attn_mhead(ctx: Ctx, pre: str, q, k, v, d_out: int, d_embed: int,
     d_head = d_embed // n_head
     n, sq = q.shape[0], q.shape[1]
     sk = k.shape[1]
-    if _attn_use_einsum(ctx, pre):
-        def proj(x, which):
-            w = ctx.param(f"{pre}.{which}.weight", (x.shape[-1], d_embed),
-                          LINEAR_W).astype(x.dtype)
-            y = jnp.einsum("nsk,khd->nhsd", x,
-                           w.reshape(x.shape[-1], n_head, d_head))
-            if bias:
-                b = ctx.param(f"{pre}.{which}.bias", (d_embed,), VEC)
-                y = y + b.reshape(n_head, 1, d_head).astype(y.dtype)
-            return y
-
-        # Transposed-kernel path: project v directly to [N,H,D,Sk] and
-        # consume the [N,H,D,Sq] output — the kernel's layout change folds
-        # into these einsums for free (see ops/flash_attention.py).  Gate
-        # mirrors flash_attention_compatible: big non-causal self-attention.
-        from ..ops.attention import (attention_t, unet_stock_preferred,
-                                     use_flash, use_flash_t)
-        if (not mask and sq >= 512 and sk >= 512 and d_head <= 512
-                and use_flash() and use_flash_t()
-                and not unet_stock_preferred(n, n_head, sq, sk, d_head,
-                                             dtype=q.dtype)):
-            q = proj(q, "q_proj")
-            k = proj(k, "k_proj")
-            w_v = ctx.param(f"{pre}.v_proj.weight", (v.shape[-1], d_embed),
-                            LINEAR_W).astype(v.dtype)
-            vt = jnp.einsum("nsk,khd->nhds", v,
-                            w_v.reshape(v.shape[-1], n_head, d_head))
-            if bias:
-                b = ctx.param(f"{pre}.v_proj.bias", (d_embed,), VEC)
-                vt = vt + b.reshape(n_head, d_head, 1).astype(vt.dtype)
-            ot = attention_t(q, k, vt)
-            w_o = ctx.param(pre + ".out_proj.weight", (d_embed, d_out),
-                            LINEAR_W).astype(ot.dtype)
-            out = jnp.einsum("nhds,hdk->nsk", ot,
-                             w_o.reshape(n_head, d_head, d_out))
-            if bias_out:
-                b = ctx.param(pre + ".out_proj.bias", (d_out,), VEC)
-                out = out + b.astype(out.dtype)
-            return out
-
-        q = proj(q, "q_proj")
-        k = proj(k, "k_proj")
-        v = proj(v, "v_proj")
-        o = attention(q, k, v, causal=mask)
-        w_o = ctx.param(pre + ".out_proj.weight", (d_embed, d_out),
-                        LINEAR_W).astype(o.dtype)
-        out = jnp.einsum("nhsd,hdk->nsk", o,
-                         w_o.reshape(n_head, d_head, d_out))
-        if bias_out:
-            b = ctx.param(pre + ".out_proj.bias", (d_out,), VEC)
-            out = out + b.astype(out.dtype)
-        return out
     q = linear(ctx, pre + ".q_proj", q, d_embed, bias)
     k = linear(ctx, pre + ".k_proj", k, d_embed, bias)
     v = linear(ctx, pre + ".v_proj", v, d_embed, bias)
-    q = q.reshape(n, sq, n_head, d_head).transpose(0, 2, 1, 3)
-    k = k.reshape(n, sk, n_head, d_head).transpose(0, 2, 1, 3)
-    v = v.reshape(n, sk, n_head, d_head).transpose(0, 2, 1, 3)
-    o = attention(q, k, v, causal=mask)
-    o = o.transpose(0, 2, 1, 3).reshape(n, sq, d_embed)
-    return linear(ctx, pre + ".out_proj", o, d_out, bias_out)
+    o = attention(q.reshape(n, sq, n_head, d_head),
+                  k.reshape(n, sk, n_head, d_head),
+                  v.reshape(n, sk, n_head, d_head), causal=mask)
+    return linear(ctx, pre + ".out_proj", o.reshape(n, sq, d_embed), d_out,
+                  bias_out)
 
 
 def basic_transformer(ctx: Ctx, pre: str, x, c, d_out: int, d_embed: int,

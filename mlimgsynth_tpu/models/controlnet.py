@@ -17,7 +17,7 @@ parts are ``cnet.hint.{0..7}`` (the hint encoder), ``cnet.zc.{0..11}``
 (``control_model.*`` CompVis layout / diffusers ControlNetModel layout)
 are mapped by :func:`mlimgsynth_tpu.nameconv.normalize_cnet_name`.
 
-TPU notes: the hint encoder is hint-only (no x/t dependence), so the
+Device notes: the hint encoder is hint-only (no x/t dependence), so the
 sampler evaluates it ONCE per program — inside the same fused dispatch,
 hoisted out of the denoise scan — and only the encoder+middle copy runs
 per step.  CFG's stacked cond/uncond batch rows broadcast against the

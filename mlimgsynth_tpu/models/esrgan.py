@@ -8,8 +8,8 @@ Dense Blocks, a trunk conv with a global residual, two nearest-2x +
 conv upsample stages, and an HR head — all 3x3 convs with LeakyReLU(0.2)
 activations and 0.2 residual scaling.
 
-TPU notes: the whole network is 3x3 convs at full image resolution —
-pure conv MXU work in NHWC/bf16, one fused XLA program, no attention and
+Device notes: the whole network is 3x3 convs at full image resolution —
+pure conv work in NHWC/bf16, one fused XLA program, no attention and
 no normalization layers at all.  x2/x1 checkpoints keep the same trunk
 but feed a space-to-depth (pixel-unshuffle) input so the fixed 4x
 upsampler nets out at 2x/1x.

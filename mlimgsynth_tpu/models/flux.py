@@ -5,10 +5,10 @@ Beyond-reference model family: the black-forest-labs Flux architecture —
 24 heads of 128, 3-axis rotary position embeddings (axes_dim [16,56,56]
 over (id, y, x)), qk RMSNorm, T5 context + CLIP-L pooled conditioning, and
 (dev) an embedded guidance input replacing CFG.  Transcribed from the
-public flux reference semantics, built TPU-first like models/mmdit.py:
-fused-qkv matmuls through ``B.linear`` (int8 weight-only capable — the
-12B model only fits one v5e chip quantized), joint attention through the
-shared flash dispatch, modulation vectors in f32.
+public flux reference semantics, built like models/mmdit.py: fused-qkv
+matmuls through ``B.linear`` (int8/int4 weight-only capable), joint
+attention through the shared dispatch in ops/attention.py, modulation
+vectors in f32.
 
 Param names mirror the bare flux checkpoint tails under the internal
 ``flux.`` prefix (``flux.double_blocks.0.img_attn.qkv.weight`` ...).
@@ -101,13 +101,13 @@ def rope_tables(P: FluxParams, hp: int, wp: int, s_txt: int):
 
 
 def _rope_apply(x, cos, sin):
-    """x: [N,H,S,D]; rotate interleaved pairs (x_even, x_odd) by the
+    """x: [N,S,H,D]; rotate interleaved pairs (x_even, x_odd) by the
     per-position angles (flux convention: pairs are adjacent elements)."""
     xf = x.astype(jnp.float32)
     x_even = xf[..., 0::2]
     x_odd = xf[..., 1::2]
-    c = cos[None, None]
-    s = sin[None, None]
+    c = cos[None, :, None]
+    s = sin[None, :, None]
     out_even = x_even * c - x_odd * s
     out_odd = x_even * s + x_odd * c
     out = jnp.stack([out_even, out_odd], axis=-1)
@@ -131,16 +131,16 @@ def _qkv_split(ctx: B.Ctx, pre: str, x, P: FluxParams):
     d, h, dh = P.d_model, P.n_head, P.d_head
     y = B.linear(ctx, pre + ".qkv", x, 3 * d)
     n, s = y.shape[0], y.shape[1]
-    y = y.reshape(n, s, 3, h, dh).transpose(2, 0, 3, 1, 4)
-    q, k, v = y[0], y[1], y[2]
+    y = y.reshape(n, s, 3, h, dh)
+    q, k, v = y[:, :, 0], y[:, :, 1], y[:, :, 2]
     q = _rms(ctx, pre + ".norm.query_norm", q)
     k = _rms(ctx, pre + ".norm.key_norm", k)
     return q, k, v
 
 
 def _attn_proj(ctx: B.Ctx, pre: str, o, P: FluxParams):
-    n, h, s, dh = o.shape
-    o2 = o.transpose(0, 2, 1, 3).reshape(n, s, P.d_model)
+    n, s = o.shape[0], o.shape[1]
+    o2 = o.reshape(n, s, P.d_model)
     return B.linear(ctx, pre + ".proj", o2, P.d_model)
 
 
@@ -185,22 +185,22 @@ def double_block(ctx: B.Ctx, pre: str, img, txt, vec, cos, sin,
     tq, tk, tv = _qkv_split(ctx, pre + ".txt_attn",
                             _mod_apply(_ln(txt), t_sh1, t_sc1), P)
     st = txt.shape[1]
-    q = jnp.concatenate([tq, iq], axis=2)
-    k = jnp.concatenate([tk, ik], axis=2)
-    v = jnp.concatenate([tv, iv], axis=2)
+    q = jnp.concatenate([tq, iq], axis=1)
+    k = jnp.concatenate([tk, ik], axis=1)
+    v = jnp.concatenate([tv, iv], axis=1)
     q = _rope_apply(q, cos, sin)
     k = _rope_apply(k, cos, sin)
     o = attention(q, k, v)
 
     img = img + (i_g1[:, None, :]).astype(img.dtype) * _attn_proj(
-        ctx, pre + ".img_attn", o[:, :, st:], P)
+        ctx, pre + ".img_attn", o[:, st:], P)
     h = _mod_apply(_ln(img), i_sh2, i_sc2)
     h = B.linear(ctx, pre + ".img_mlp.0", h, P.mlp_ratio * d)
     h = B.linear(ctx, pre + ".img_mlp.2", B.gelu_tanh(h), d)
     img = img + (i_g2[:, None, :]).astype(img.dtype) * h
 
     txt = txt + (t_g1[:, None, :]).astype(txt.dtype) * _attn_proj(
-        ctx, pre + ".txt_attn", o[:, :, :st], P)
+        ctx, pre + ".txt_attn", o[:, :st], P)
     h = _mod_apply(_ln(txt), t_sh2, t_sc2)
     h = B.linear(ctx, pre + ".txt_mlp.0", h, P.mlp_ratio * d)
     h = B.linear(ctx, pre + ".txt_mlp.2", B.gelu_tanh(h), d)
@@ -219,14 +219,13 @@ def single_block(ctx: B.Ctx, pre: str, x, vec, cos, sin, P: FluxParams):
     y = B.linear(ctx, pre + ".linear1", xm, 3 * d + mlp_d)
     qkv, mlp = y[..., :3 * d], y[..., 3 * d:]
     n, s = y.shape[0], y.shape[1]
-    qkv = qkv.reshape(n, s, 3, h, dh).transpose(2, 0, 3, 1, 4)
-    q, k, v = qkv[0], qkv[1], qkv[2]
+    qkv = qkv.reshape(n, s, 3, h, dh)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     q = _rms(ctx, pre + ".norm.query_norm", q)
     k = _rms(ctx, pre + ".norm.key_norm", k)
     q = _rope_apply(q, cos, sin)
     k = _rope_apply(k, cos, sin)
-    o = attention(q, k, v)
-    o = o.transpose(0, 2, 1, 3).reshape(n, s, d)
+    o = attention(q, k, v).reshape(n, s, d)
     cat = jnp.concatenate([o, B.gelu_tanh(mlp)], axis=-1)
     out = B.linear(ctx, pre + ".linear2", cat, d)
     return x + (gate[:, None, :]).astype(x.dtype) * out

@@ -7,13 +7,13 @@ follows the public SD3 paper ("Scaling Rectified Flow Transformers for
 High-Resolution Image Synthesis") and the sd3 single-file checkpoint layout
 (``model.diffusion_model.joint_blocks.N.{context_block,x_block}...``).
 
-TPU-first choices:
+Layout choices:
 * qkv stays FUSED as one ``[d, 3d]`` matmul per stream (the checkpoint ships
-  it fused; splitting would only shrink the MXU contraction), heads split via
-  a single reshape of the packed result;
+  it fused), heads split via a single reshape of the packed result into the
+  ``[N, S, H, D]`` layout attention takes;
 * joint attention (text tokens ++ latent patches in one sequence) runs
-  through :func:`~..ops.attention.attention`, so the Pallas flash kernels and
-  the mesh shard_map path apply unchanged;
+  through :func:`~..ops.attention.attention`, so its cuDNN route and the
+  mesh paths apply unchanged;
 * adaLN modulation vectors are computed once per step in f32 and broadcast
   into the bf16 stream;
 * patchify/unpatchify are a stride-2 conv (NHWC) and a reshape — no gathers.
@@ -99,47 +99,18 @@ def _rms_norm(x, w, eps: float = 1e-6):
 
 
 def _qkv(ctx: B.Ctx, pre: str, x, P: MmditParams):
-    """Fused qkv projection -> ([N,H,S,D], [N,H,S,D], [N,H,S,D]).
+    """Fused qkv projection -> ([N,S,H,D], [N,S,H,D], [N,S,H,D]).
 
-    Default: one [d, 3d] matmul (checkpoint-native packing, full-width MXU
-    contraction; B.linear also gives the int8 weight-only path); heads
-    split by reshape of the packed [N,S,3,H,D] result.
-
-    Head-split einsums (DEFAULT; MLIS_MMDIT_EINSUM=0 opts out): three
-    einsums on slices of the fused weight produce [N,H,S,D] directly from
-    the matmul — no [3,H] transpose relayouts of the packed result (the
-    measured-good attn_mhead pattern).  Measured on v5e (queue #13):
-    310.5 vs 319.0 ms/step at the SD3-medium 1024px shape (−2.7%).
-    Quantized checkpoints (no ``.qkv.weight`` key) keep the B.linear
-    int8/int4 path."""
-    import os
+    One [d, 3d] matmul (checkpoint-native packing; B.linear also gives the
+    int8/int4 weight-only path); heads split by a reshape of the packed
+    [N,S,3,H,D] result."""
     d = P.width
     h = P.heads
     dh = d // h
-    if (not ctx.record
-            and os.environ.get("MLIS_MMDIT_EINSUM", "1") != "0"
-            and (pre + ".qkv.weight") in ctx.params):
-        w = ctx.param(pre + ".qkv.weight", (x.shape[-1], 3 * d),
-                      B.LINEAR_W).astype(x.dtype)
-        bqkv = ctx.param(pre + ".qkv.bias", (3 * d,), B.VEC)
-        wr = w.reshape(x.shape[-1], 3, h, dh)
-        br = bqkv.reshape(3, h, 1, dh)
-
-        def proj(i):
-            y = jnp.einsum("nsk,khd->nhsd", x, wr[:, i])
-            return y + br[i].astype(y.dtype)
-
-        q, k, v = proj(0), proj(1), proj(2)
-        if P.qk_norm:
-            q = _rms_norm(q, ctx.param(pre + ".ln_q.weight", (dh,), B.VEC,
-                                       jnp.float32))
-            k = _rms_norm(k, ctx.param(pre + ".ln_k.weight", (dh,), B.VEC,
-                                       jnp.float32))
-        return q, k, v
     y = B.linear(ctx, pre + ".qkv", x, 3 * d)
     n, s = y.shape[0], y.shape[1]
-    y = y.reshape(n, s, 3, h, dh).transpose(2, 0, 3, 1, 4)
-    q, k, v = y[0], y[1], y[2]
+    y = y.reshape(n, s, 3, h, dh)
+    q, k, v = y[:, :, 0], y[:, :, 1], y[:, :, 2]
     if P.qk_norm:
         q = _rms_norm(q, ctx.param(pre + ".ln_q.weight", (dh,), B.VEC,
                                    jnp.float32))
@@ -149,19 +120,9 @@ def _qkv(ctx: B.Ctx, pre: str, x, P: MmditParams):
 
 
 def _attn_out(ctx: B.Ctx, pre: str, o, P: MmditParams):
-    """[N,H,S,D] attention output -> [N,S,d] through the proj linear."""
-    n, h, s, dh = o.shape
-    if not ctx.record and ((pre + ".proj.weight_q8") in ctx.params
-                           or (pre + ".proj.weight_q4") in ctx.params):
-        # int8/int4 weight-only path (the reshape feeds B.linear's
-        # quantized branch)
-        o2 = o.transpose(0, 2, 1, 3).reshape(n, s, P.width)
-        return B.linear(ctx, pre + ".proj", o2, P.width)
-    w = ctx.param(pre + ".proj.weight", (P.width, P.width), B.LINEAR_W)
-    b = ctx.param(pre + ".proj.bias", (P.width,), B.VEC)
-    out = jnp.einsum("nhsd,hdk->nsk", o,
-                     w.reshape(h, dh, P.width).astype(o.dtype))
-    return out + b.astype(out.dtype)
+    """[N,S,H,D] attention output -> [N,S,d] through the proj linear."""
+    n, s = o.shape[0], o.shape[1]
+    return B.linear(ctx, pre + ".proj", o.reshape(n, s, P.width), P.width)
 
 
 def _mlp(ctx: B.Ctx, pre: str, x, P: MmditParams):
@@ -218,12 +179,12 @@ def joint_block(ctx: B.Ctx, pre: str, cx, x, c, P: MmditParams,
     xq, xk, xv = _qkv(ctx, xpre + ".attn", xn, P)
 
     sc = cx.shape[1]
-    q = jnp.concatenate([cq, xq], axis=2)
-    k = jnp.concatenate([ck, xk], axis=2)
-    v = jnp.concatenate([cv, xv], axis=2)
+    q = jnp.concatenate([cq, xq], axis=1)
+    k = jnp.concatenate([ck, xk], axis=1)
+    v = jnp.concatenate([cv, xv], axis=1)
     o = attention(q, k, v)          # scale 1/sqrt(d_head)
 
-    xo = _attn_out(ctx, xpre + ".attn", o[:, :, sc:], P)
+    xo = _attn_out(ctx, xpre + ".attn", o[:, sc:], P)
     x = x + (x_gate[:, None, :]).astype(x.dtype) * xo
     if x_self_attn:
         # latent-only self-attention branch off the SAME norm1 output
@@ -239,7 +200,7 @@ def joint_block(ctx: B.Ctx, pre: str, cx, x, c, P: MmditParams,
 
     if ctx_pre_only:
         return None, x
-    co = _attn_out(ctx, cpre + ".attn", o[:, :, :sc], P)
+    co = _attn_out(ctx, cpre + ".attn", o[:, :sc], P)
     cx = cx + (c_gate[:, None, :]).astype(cx.dtype) * co
     cn = B.layer_norm(ctx, cpre + ".norm2", cx, eps=1e-6, affine=False)
     cn = _modulate(cn, c_shift2, c_scale2)

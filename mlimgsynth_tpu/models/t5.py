@@ -14,10 +14,10 @@ prefix (``t5.shared.weight``, ``t5.encoder.block.N.layer.0.SelfAttention.q
 (``text_encoders.t5xxl.transformer.*`` — see nameconv._t5), so both bundled
 and standalone T5 checkpoints key directly.
 
-TPU notes: relative-position bucket indices are computed host-side at trace
-time (static sequence length) so the bias is one gather + transpose; the
-sequence is <= 256 tokens, so attention runs on the XLA softmax path (the
-flash kernels don't take a logits bias, and at this size it wouldn't pay).
+Device notes: relative-position bucket indices are computed host-side at
+trace time (static sequence length) so the bias is one gather + transpose;
+the sequence is <= 256 tokens, so attention runs its own XLA softmax with
+the logits bias added.
 """
 from __future__ import annotations
 

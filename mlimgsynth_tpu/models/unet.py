@@ -5,7 +5,7 @@ Architecture, parameter naming and k-diffusion scalings mirror the reference
 ``in.1.1.transf.0.attn2.k_proj.weight`` match the checkpoint normalizer
 output, enabling direct keying into the param dict.
 
-TPU-native: NHWC activations, one batched forward for CFG (cond/uncond as
+Layout: NHWC activations, one batched forward for CFG (cond/uncond as
 batch rows) instead of the reference's two sequential evaluations.
 """
 from __future__ import annotations

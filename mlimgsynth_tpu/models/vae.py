@@ -52,9 +52,9 @@ def attn_2d_self(ctx: B.Ctx, pre: str, x):
     n, h, w, c = x.shape
     x0 = x
     x = B.group_norm(ctx, pre + ".norm", x)
-    q = B.conv2d(ctx, pre + ".q", x, c, 1, 1, pad=0).reshape(n, 1, h * w, c)
-    k = B.conv2d(ctx, pre + ".k", x, c, 1, 1, pad=0).reshape(n, 1, h * w, c)
-    v = B.conv2d(ctx, pre + ".v", x, c, 1, 1, pad=0).reshape(n, 1, h * w, c)
+    q = B.conv2d(ctx, pre + ".q", x, c, 1, 1, pad=0).reshape(n, h * w, 1, c)
+    k = B.conv2d(ctx, pre + ".k", x, c, 1, 1, pad=0).reshape(n, h * w, 1, c)
+    v = B.conv2d(ctx, pre + ".v", x, c, 1, 1, pad=0).reshape(n, h * w, 1, c)
     o = attention(q, k, v)  # scale 1/sqrt(c)
     o = o.reshape(n, h, w, c)
     o = B.conv2d(ctx, pre + ".proj_out", o, c, 1, 1, pad=0)

@@ -1,38 +1,41 @@
-"""Attention ops: XLA reference path and Pallas flash-attention dispatch.
+"""Attention ops: one shape rule picks cuDNN's fused kernel or XLA's softmax.
 
 The reference computes full-softmax attention ``softmax(K^T Q / sqrt(d)) V``
 (reference: src/ggml_extend.c:200-222) head-batched on a single device; its
-flash-attention flag is disabled as broken.  Here the O(n^2) softmax is the
-*fallback* and a fused Pallas TPU kernel (ops/flash_attention.py) is the hot
-path, enabled whenever shapes allow.
+flash-attention flag is disabled as broken.  Here :func:`attention_route`
+sends each call either to cuDNN's fused attention (through
+``jax.nn.dot_product_attention(implementation="cudnn")``) or to
+:func:`attention_xla`, the O(n^2) softmax that XLA compiles and that every
+test compares against.
+
+Layout: every tensor is ``[B, S, H, D]`` (batch, tokens, heads, head dim),
+the layout cuDNN takes, so the projections feed it through a reshape and no
+transpose is materialised.
 """
 from __future__ import annotations
 
-import functools
 import os
 
 import jax
 import jax.numpy as jnp
 
-_FLASH_ENV = "MLIS_FLASH_ATTENTION"
-
-# Set by the session when a multi-chip mesh is active.  Mosaic custom calls
-# cannot be auto-partitioned by GSPMD, so sharded runs route the flash kernel
-# through an explicit shard_map over (dp, tp) — each device runs the kernel
-# on its local (batch, heads) block; shapes that don't divide the mesh fall
-# back to the XLA softmax path, which GSPMD partitions itself.  Read at trace
+# Set by the session when a multi-device mesh is active.  Read at trace
 # time; mesh-sharded inputs force a fresh trace (shardings are part of the
-# jit cache key), so the setting takes effect per session setup.
+# jit cache key), so the setting takes effect per session setup.  cuDNN's
+# fused attention carries its own GSPMD partitioning rule over batch and
+# heads, so dp/tp meshes need no wrapper; only sp reroutes (ring attention).
 MESH = None
-
-# Back-compat escape hatch: force the XLA softmax path everywhere.
-FORCE_XLA = False
 
 # Trace-time depth counter: >0 while tracing code that already runs
 # per-device inside a shard_map (e.g. the pipeline-parallel block stack).
-# Nested shard_maps are illegal, so the mesh/sp wrappers are skipped and
-# the flash kernel (legal inside shard_map) is called directly.
+# Nested shard_maps are illegal, so the sp wrappers are skipped there.
 _LOCAL_ONLY = 0
+
+# cuDNN's fused attention on Hopper takes bf16/fp16 with a head dim that is
+# a multiple of 8 and at most 256 (jax/_src/cudnn/fused_attention_stablehlo
+# check_is_flash_attention).
+_CUDNN_DTYPES = (jnp.bfloat16, jnp.float16)
+_CUDNN_MAX_D = 256
 
 
 class local_only:
@@ -50,24 +53,6 @@ class local_only:
         return False
 
 
-def use_flash() -> bool:
-    if FORCE_XLA:
-        return False
-    v = os.environ.get(_FLASH_ENV, "auto")
-    if v in ("0", "false", "no"):
-        return False
-    if v in ("1", "true", "yes"):
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _mesh_divides(b: int, h: int) -> bool:
-    from ..parallel.mesh import DP_AXIS, TP_AXIS
-    dp = MESH.shape.get(DP_AXIS, 1)
-    tp = MESH.shape.get(TP_AXIS, 1)
-    return b % dp == 0 and h % tp == 0
-
-
 def _sp_size() -> int:
     if MESH is None or _LOCAL_ONLY:
         return 1
@@ -78,17 +63,17 @@ def _sp_size() -> int:
 def _sp_attention(q, k, v, scale, causal):
     """Sequence-parallel routing: ring attention when the token axis is
     sharded over ``sp`` (self/joint attention), q-sharded local attention for
-    short cross-attention contexts.  Returns None when shapes don't divide
-    the mesh (caller falls through to the replicated-sequence paths).
-    Causal masking is not wired through the ring (no caller needs it)."""
+    short cross-attention contexts.  Returns None when batch or heads don't
+    divide the mesh (caller falls through to the replicated-sequence
+    paths).  Causal masking is not wired through the ring (no caller needs
+    it)."""
     if causal:
         return None
     from ..parallel import ring_attention as ring
-    if not ring.sp_compatible(MESH, q.shape[0], q.shape[1],
-                              q.shape[2], k.shape[2]):
+    if not ring.sp_compatible(MESH, q.shape[0], q.shape[2]):
         _warn_sp_fallback(q.shape, k.shape)
         return None
-    if q.shape[2] == k.shape[2]:
+    if q.shape[1] == k.shape[1]:
         return ring.ring_attention(q, k, v, MESH, scale=scale)
     return ring.sp_cross_attention(q, k, v, MESH, scale=scale)
 
@@ -98,9 +83,8 @@ _SP_FALLBACK_SEEN: set = set()
 
 def _warn_sp_fallback(q_shape, k_shape) -> None:
     """--sp was requested but this attention shape can't ride the ring
-    (token axis doesn't divide the sp mesh axis): make the GSPMD fallback
-    VISIBLE instead of silently changing the parallel strategy (VERDICT
-    r3 weak #6)."""
+    (batch or heads don't divide the dp/tp mesh axes): make the GSPMD
+    fallback visible instead of silently changing the parallel strategy."""
     key = (tuple(q_shape), tuple(k_shape))
     if key in _SP_FALLBACK_SEEN:
         return
@@ -108,155 +92,60 @@ def _warn_sp_fallback(q_shape, k_shape) -> None:
     from ..utils.log import g_logger
     g_logger.warning(
         f"sp: attention q{tuple(q_shape)} x kv{tuple(k_shape)} does not "
-        f"divide the sp mesh axis; falling back to GSPMD sharding for "
+        f"divide the dp/tp mesh axes; falling back to GSPMD sharding for "
         f"this shape (no ring attention)")
 
 
-def _sp_attention_t(q, k, vt, scale):
-    """Transposed-v twin of :func:`_sp_attention` (vt [B,H,D,Sk] ->
-    [B,H,D,Sq]): consumes/produces the transposed layout directly so the
-    sp path adds no S x D relayouts around attention_t's fast path."""
-    from ..parallel import ring_attention as ring
-    if not ring.sp_compatible(MESH, q.shape[0], q.shape[1],
-                              q.shape[2], k.shape[2]):
-        _warn_sp_fallback(q.shape, k.shape)
-        return None
-    if q.shape[2] == k.shape[2]:
-        return ring.ring_attention_t(q, k, vt, MESH, scale=scale)
-    return ring.sp_cross_attention_t(q, k, vt, MESH, scale=scale)
-
-
-def _shard_map_bhsd(fn, *args):
-    """Run ``fn`` per-device over MESH with every arg/result sharded
-    (dp, tp, None, None) — batch over data-parallel, heads over
-    tensor-parallel.  Pallas kernels are legal inside shard_map (the body is
-    a per-device program), which is how the flash kernel runs multi-chip."""
-    from jax.sharding import PartitionSpec as P
-
-    from ..parallel.mesh import DP_AXIS, TP_AXIS
-    spec = P(DP_AXIS, TP_AXIS, None, None)
-    f = jax.shard_map(fn, mesh=MESH, in_specs=(spec,) * len(args),
-                      out_specs=spec, check_vma=False)
-    return f(*args)
-
-
 def attention_xla(q, k, v, scale=None, causal=False):
-    """Reference attention. q,k,v: [B, H, Sq|Sk, D]; returns [B, H, Sq, D].
+    """Reference attention. q,k,v: [B, Sq|Sk, H, D]; returns [B, Sq, H, D].
 
     Logits and softmax accumulate in f32 regardless of input dtype.
     """
     d = q.shape[-1]
     if scale is None:
         scale = 1.0 / (d ** 0.5)
-    logits = jnp.einsum("bhqd,bhkd->bhqk", q, k,
+    logits = jnp.einsum("bqhd,bkhd->bhqk", q, k,
                         preferred_element_type=jnp.float32) * scale
     if causal:
         sq, sk = logits.shape[-2], logits.shape[-1]
         mask = jnp.tril(jnp.ones((sq, sk), bool), k=sk - sq)
         logits = jnp.where(mask, logits, -jnp.inf)
     w = jax.nn.softmax(logits, axis=-1).astype(q.dtype)
-    return jnp.einsum("bhqk,bhkd->bhqd", w, v)
+    return jnp.einsum("bhqk,bkhd->bqhd", w, v)
+
+
+def attention_route(d: int, dtype, platform: str) -> str:
+    """The one shape rule: ``"cudnn"`` or ``"xla"``.
+
+    cuDNN's fused kernel runs wherever it accepts the shape: on the GPU, in
+    bf16/fp16, with a head dim that is a multiple of 8 and <= 256.  On the
+    H100 it beat XLA's softmax 2.3-5x on every self/joint attention of the
+    model families and took SD1.5 e2e from 0.287 to 0.182 s/image; the
+    77-token cross-attention is within noise of XLA per call, and routing it
+    to XLA cost 3-7% e2e (PERF.md).  Everything else (f32 sessions, the
+    VAE's d=512 mid-block, the CPU) runs :func:`attention_xla`."""
+    if (platform == "gpu" and jnp.dtype(dtype) in _CUDNN_DTYPES
+            and d % 8 == 0 and d <= _CUDNN_MAX_D):
+        return "cudnn"
+    return "xla"
 
 
 def attention(q, k, v, scale=None, causal=False):
-    """Dispatch to the Pallas flash kernel on TPU, XLA softmax otherwise."""
+    """q,k,v: [B, S, H, D] -> [B, Sq, H, D], routed by
+    :func:`attention_route`."""
     if "attn" in os.environ.get("MLIS_ABLATE", ""):
         # perf-attribution mode (tools/step_bench.py): skip the softmax
         # attention itself, keep projections — NOT for real generation
-        mean_v = jnp.mean(v, axis=2, keepdims=True)
+        mean_v = jnp.mean(v, axis=1, keepdims=True)
         return jnp.broadcast_to(mean_v, q.shape[:3] + (v.shape[-1],))
     if _sp_size() > 1:
         o = _sp_attention(q, k, v, scale, causal)
         if o is not None:
             return o
-    if use_flash():
-        mesh = MESH if (MESH is not None and not _LOCAL_ONLY) else None
-        from . import splash_flash as spl
-        if spl.eligible(q, k, v, causal, mesh=mesh):
-            fn = functools.partial(spl.splash_flash, scale=scale)
-            if mesh is not None:
-                if _mesh_divides(q.shape[0], q.shape[1]):
-                    return _shard_map_bhsd(fn, q, k, v)
-            else:
-                return fn(q, k, v)
-        from . import stock_flash as sf
-        if sf.eligible(q, k, v, causal, mesh=mesh):
-            fn = functools.partial(sf.stock_flash, scale=scale)
-            if mesh is not None:
-                if _mesh_divides(q.shape[0], q.shape[1]):
-                    return _shard_map_bhsd(fn, q, k, v)
-            else:
-                return fn(q, k, v)
-        from .flash_attention import (flash_attention,
-                                      flash_attention_compatible)
-        if flash_attention_compatible(q, k, v, causal):
-            fn = functools.partial(flash_attention, scale=scale, causal=causal)
-            if MESH is not None and not _LOCAL_ONLY:
-                if _mesh_divides(q.shape[0], q.shape[1]):
-                    return _shard_map_bhsd(fn, q, k, v)
-            else:
-                return fn(q, k, v)
+    # cuDNN aligns a causal mask top-left, attention_xla bottom-right; they
+    # agree when Sq == Sk (CLIP, the only causal caller)
+    if (attention_route(q.shape[-1], q.dtype, jax.default_backend())
+            == "cudnn" and not (causal and q.shape[1] != k.shape[1])):
+        return jax.nn.dot_product_attention(
+            q, k, v, scale=scale, is_causal=causal, implementation="cudnn")
     return attention_xla(q, k, v, scale=scale, causal=causal)
-
-
-def use_flash_t() -> bool:
-    """Transposed-v flash kernel (d_head on MXU sublanes instead of lanes —
-    see ops/flash_attention.py).  Default ON: measured 22.5->20.0 ms/step
-    SD1.5 and 113.6->107.6 SDXL on v5e (docs/BENCH.md); numerics checked
-    on-device by tools/flash_check.py.  Opt out with MLIS_FLASH_T=0."""
-    return os.environ.get("MLIS_FLASH_T", "1") not in ("0", "false", "no")
-
-
-def unet_stock_preferred(b: int, n_head: int, sq: int, sk: int,
-                         d_head: int, dtype=None) -> bool:
-    """Should attn_mhead emit NATURAL layout (so :func:`attention` routes
-    this self-attention through the stock kernel) instead of the
-    transposed-v layout?  Opt-in via MLIS_FLASH_UNET_STOCK (queue #42
-    A/B); the layout choice folds into the projection einsums either way,
-    so flipping this costs no relayout.  ``dtype`` is the activation
-    dtype the kernel will see: anything but bf16 is rejected here so an
-    f32 session never drops the transposed-v path for a stock route the
-    dispatcher would refuse (f32 outputs S(1)-place, round-3 finding)."""
-    import jax.numpy as jnp
-    from . import stock_flash as sf
-    m = sf.unet_mode()
-    if m == "off" or _sp_size() > 1:
-        return False
-    # force mode (tests) skips the dtype gate like every other gate
-    if m != "force" and dtype is not None and dtype != jnp.bfloat16:
-        return False
-    if MESH is not None and not _LOCAL_ONLY:
-        from ..parallel.mesh import DP_AXIS, TP_AXIS
-        if not _mesh_divides(b, n_head):
-            return False
-        b //= MESH.shape.get(DP_AXIS, 1)
-        n_head //= MESH.shape.get(TP_AXIS, 1)
-    return sf.unet_eligible(b, n_head, sq, sk, d_head)
-
-
-def attention_t(q, k, vt, scale=None):
-    """Transposed-v attention: q,k [B,H,S,D], vt [B,H,D,Sk] -> [B,H,D,Sq].
-
-    Flash path uses the transposed-layout kernel; the fallback transposes
-    around :func:`attention_xla`.  The caller folds both transposes into the
-    v-projection / out-projection einsums, so only the kernel layout differs.
-    """
-    if "attn" in os.environ.get("MLIS_ABLATE", ""):
-        mean_vt = jnp.mean(vt, axis=3, keepdims=True)
-        return jnp.broadcast_to(mean_vt, vt.shape[:3] + (q.shape[2],))
-    if _sp_size() > 1:
-        o = _sp_attention_t(q, k, vt, scale)
-        if o is not None:
-            return o
-    if use_flash():
-        from .flash_attention import (flash_attention_compatible,
-                                      flash_attention_t)
-        if flash_attention_compatible(q, k, k, False):
-            fn = functools.partial(flash_attention_t, scale=scale)
-            if MESH is not None and not _LOCAL_ONLY:
-                if _mesh_divides(q.shape[0], q.shape[1]):
-                    return _shard_map_bhsd(fn, q, k, vt)
-            else:
-                return fn(q, k, vt)
-    o = attention_xla(q, k, vt.swapaxes(-1, -2), scale=scale)
-    return o.swapaxes(-1, -2)

@@ -1,32 +1,25 @@
-"""Weight-only int4 matmul: Pallas kernel with in-VMEM nibble unpack.
+"""Weight-only int4 matmul: unpack and dequantize, then a plain dot.
 
-The 4-bit tier below ops/q8_matmul.py: weights live in HBM as packed
-nibbles (two 4-bit values per int8 byte) with the same per-[128 x column]
-f32 scales, quartering the bf16 weight footprint (Flux 12B: ~24 GiB bf16
--> ~11.75 int8 -> ~6.2 GiB int4 resident).  The kernel unpacks and
-dequantizes tiles in VMEM right before the bf16 MXU dot; activations stay
-bf16 and accumulation is float32.  The reference's analog is computing
-directly from ggml q4 blocks (reference: src/ccompute/tensorstore.c
-dequant tables); here 4-bit is a first-class runtime path, not only a
-load-time decode.
+The 4-bit tier below ops/q8_matmul.py: weights live in device memory as
+packed nibbles (two 4-bit values per int8 byte) with the same
+per-[128 x column] f32 scales, quartering the bf16 weight footprint (Flux
+12B: ~24 GiB bf16 -> ~11.75 int8 -> ~6.2 GiB int4 resident).  Activations
+stay in their dtype and XLA decides where the dequantization runs.  The
+reference's analog is computing directly from ggml q4 blocks (reference:
+src/ccompute/tensorstore.c dequant tables); here 4-bit is a runtime path,
+not only a load-time decode.
 
 Quantization: symmetric per (K-block=128, output-column) group:
 ``w = q * scale``, q in [-7, 7], ``scale = max|w_block| / 7``.
 
 Packing layout: within each 128-row K-block, row ``r`` of the 64 packed
 bytes holds block-row ``r`` in the LOW nibble and block-row ``r + 64`` in
-the HIGH nibble — unpacking is two arithmetic shifts and one sublane
-concat (no interleave relayout on the TPU's [sublane, lane] tiles).
+the HIGH nibble, so unpacking is two arithmetic shifts and one concat.
 """
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .q8_matmul import KBLOCK
 
@@ -48,23 +41,8 @@ def quantize_weight_q4(w: np.ndarray):
     return packed, scale.reshape(k // KBLOCK, n)
 
 
-def _unpack_block(wp):
-    """Packed [HALF, bn] int8 -> [KBLOCK, bn] int32 in block-row order.
-
-    Mosaic-safe unpack: no left shifts (arith.shli fails to legalize on
-    the real v5e compiler — round-3 queue #16 killed every q4 config);
-    the byte is sign-extended to int32, the high nibble is an arithmetic
-    right shift (floor(w/16), exact because the low nibble is stored
-    unsigned), and the low nibble is sign-extended via ``(x & 15 ^ 8) - 8``.
-    """
-    w = wp.astype(jnp.int32)
-    hi = w >> 4
-    lo = ((w & 15) ^ 8) - 8
-    return jnp.concatenate([lo, hi], axis=0)
-
-
 def unpack_q4(packed, k):
-    """[K/2, N] packed -> [K, N] int8 (host/test helper, jnp)."""
+    """[K/2, N] packed -> [K, N] int8."""
     n = packed.shape[1]
     pb = jnp.asarray(packed).reshape(k // KBLOCK, HALF, n)
     lo = (pb << 4) >> 4
@@ -72,167 +50,8 @@ def unpack_q4(packed, k):
     return jnp.concatenate([lo, hi], axis=1).reshape(k, n)
 
 
-def _q4_kernel(x_ref, w_ref, s_ref, o_ref, acc_ref, *, n_kb, g):
-    """KB-grouped inner blocks (same round-4 restructure as _q8_kernel:
-    one accumulator pass per KB = g * 128 rows, per-group scales applied
-    to the unpacked weight tile instead of the f32 product)."""
-    ik = pl.program_id(2)
-
-    @pl.when(ik == 0)
-    def _init():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    x = x_ref[...]                      # [bm, KB] bf16/f32
-    wp = w_ref[...]                     # [g*HALF, bn] packed int8
-    s = s_ref[...]                      # [g, 8, bn] f32
-    bn = wp.shape[-1]
-    w = wp.reshape(g, HALF, bn).astype(jnp.int32)
-    hi = w >> 4
-    lo = ((w & 15) ^ 8) - 8
-    wd = jnp.concatenate([lo, hi], axis=1).astype(jnp.float32)  # [g,128,bn]
-    wd = (wd * s[:, 0:1, :]).reshape(g * KBLOCK, bn).astype(x_ref.dtype)
-    acc_ref[:] += jax.lax.dot_general(
-        x, wd, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-
-    @pl.when(ik == n_kb - 1)
-    def _done():
-        o_ref[...] = acc_ref[:].astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "block_n",
-                                              "block_k"))
-def q4_matmul(x, w_q4, w_scale, block_m: int = 256, block_n: int = 512,
-              block_k: int | None = None):
-    """x: [..., K], w_q4: [K/2, N] packed int8, w_scale: [K/128, N] f32
-    -> [..., N] in x.dtype."""
-    orig_shape = x.shape
-    k = x.shape[-1]
-    n = w_q4.shape[1]
-    x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    # same KB selection as q8_matmul: odd 128-multiples (sd35-large
-    # d_model 2432) run K as ONE block instead of per-128 slabs
-    cands = [c for c in (1024, 512, 256) if k % c == 0]
-    if block_k is not None and k % block_k == 0 and block_k % KBLOCK == 0:
-        kb_in = block_k
-    elif cands:
-        kb_in = cands[0]
-    elif k <= 4096:
-        kb_in = k
-        block_n = min(block_n, 256)
-    else:
-        kb_in = 128
-    g = kb_in // KBLOCK
-    n_kb = k // kb_in
-
-    bm = min(block_m, max(8, 1 << (m - 1).bit_length()))
-    for cand in (block_n, 256, 128):
-        if n % cand == 0:
-            bn = cand
-            break
-    else:
-        bn = n
-    m_p = pl.cdiv(m, bm) * bm
-    if m_p != m:
-        x2 = jnp.pad(x2, ((0, m_p - m), (0, 0)))
-    scale8 = jnp.broadcast_to(w_scale[:, None, :], (k // KBLOCK, 8, n))
-
-    out = pl.pallas_call(
-        functools.partial(_q4_kernel, n_kb=n_kb, g=g),
-        grid=(m_p // bm, n // bn, n_kb),
-        in_specs=[
-            pl.BlockSpec((bm, kb_in), lambda i, j, ik: (i, ik)),
-            pl.BlockSpec((g * HALF, bn), lambda i, j, ik: (ik, j)),
-            pl.BlockSpec((g, 8, bn), lambda i, j, ik: (ik, 0, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, ik: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_p, n), x.dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-    )(x2, w_q4, scale8)
-    return out[:m].reshape(orig_shape[:-1] + (n,))
-
-
-def _q4_ws_kernel(x_ref, w_ref, s_ref, o_ref, *, slab, gs):
-    """Weight-stationary twin of q8_matmul._q8_ws_kernel: the full-K
-    packed stripe stays VMEM-resident across the inner m sweep (grid
-    (n, m), stripe indexed by n only) — each packed byte crosses HBM
-    once per call and is unpacked/dequantized once per (n-stripe,
-    m-block) instead of once per m-block reload."""
-    kk2, bn = w_ref.shape               # [K/2, bn] packed
-    hs = slab // 2
-    acc = None
-    for si in range(kk2 // hs):
-        wp = w_ref[si * hs:(si + 1) * hs, :]
-        s = s_ref[si * gs:(si + 1) * gs, 0:1, :]
-        w = wp.reshape(gs, HALF, bn).astype(jnp.int32)
-        hi = w >> 4
-        lo = ((w & 15) ^ 8) - 8
-        wd = jnp.concatenate([lo, hi], axis=1).astype(jnp.float32)
-        wd = (wd * s).reshape(slab, bn).astype(x_ref.dtype)
-        part = jax.lax.dot_general(
-            x_ref[:, si * slab:(si + 1) * slab], wd,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        acc = part if acc is None else acc + part
-    o_ref[...] = acc.astype(o_ref.dtype)
-
-
-# in-kernel temp cost per dequanted element: i32 unpack + f32 + bf16
-_Q4_TEMP_BYTES = 10
-
-
-@jax.jit
-def q4_matmul_ws(x, w_q4, w_scale):
-    """Weight-stationary q4 dq matmul.  x: [..., K], w_q4: [K/2, N]
-    packed int8, w_scale: [K/128, N] f32 -> [..., N] in x.dtype."""
-    from .q8_matmul import _plan_ws
-    orig_shape = x.shape
-    k = x.shape[-1]
-    n = w_q4.shape[1]
-    x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    plan = _plan_ws(m, k, n, x.dtype.itemsize, x.dtype.itemsize,
-                    w_bytes=0.5, temp_bytes=_Q4_TEMP_BYTES)
-    if plan is None:
-        raise ValueError(f"no ws geometry for K={k}, N={n}")
-    bm, bn, slab = plan[:3]
-    bm = min(bm, max(8, 1 << (m - 1).bit_length()))
-    m_p = pl.cdiv(m, bm) * bm
-    if m_p != m:
-        x2 = jnp.pad(x2, ((0, m_p - m), (0, 0)))
-    scale8 = jnp.broadcast_to(w_scale[:, None, :], (k // KBLOCK, 8, n))
-
-    out = pl.pallas_call(
-        functools.partial(_q4_ws_kernel, slab=slab, gs=slab // KBLOCK),
-        grid=(pl.cdiv(n, bn), m_p // bm),
-        in_specs=[
-            pl.BlockSpec((bm, k), lambda j, i: (i, 0)),
-            pl.BlockSpec((k // 2, bn), lambda j, i: (0, j)),
-            pl.BlockSpec((k // KBLOCK, 8, bn), lambda j, i: (0, 0, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda j, i: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_p, n), x.dtype),
-    )(x2, w_q4, scale8)
-    return out[:m].reshape(orig_shape[:-1] + (n,))
-
-
-def ws_eligible_q4(m, k, n, itemsize=2) -> bool:
-    import os
-
-    from .q8_matmul import _WS_MIN_M, _plan_ws
-    v = os.environ.get("MLIS_Q8_WS", "auto").lower()
-    if v in ("", "0", "false", "no", "off"):
-        return False
-    if v == "force":
-        return True
-    return (m >= _WS_MIN_M
-            and _plan_ws(m, k, n, itemsize, itemsize, w_bytes=0.5,
-                         temp_bytes=_Q4_TEMP_BYTES) is not None)
-
-
-def q4_matmul_xla(x, w_q4, w_scale):
-    """Weight-only fallback path: unpack + dequantize then matmul."""
+def q4_dot(x, w_q4, w_scale):
+    """x @ dequant(w): unpack + dequantize, then matmul in x's dtype."""
     k = x.shape[-1]
     n = w_q4.shape[1]
     q = unpack_q4(w_q4, k)
@@ -240,23 +59,3 @@ def q4_matmul_xla(x, w_q4, w_scale):
          * w_scale[:, None, :]).reshape(k, n)
     return jnp.dot(x, w.astype(x.dtype))
 
-
-def q4_dot(x, w_q4, w_scale):
-    """Dispatch: Pallas in-VMEM unpack+dequant on TPU, XLA emulation off.
-    Large-M grid strategy (weight-stationary vs row-sweep) picked by the
-    shared bytes-equivalent cost model."""
-    from .q8_matmul import pick_large_m_plan
-    on_tpu = jax.default_backend() == "tpu" and w_q4.shape[1] % 128 == 0
-    if on_tpu:
-        sel = pick_large_m_plan(int(np.prod(x.shape[:-1])), x.shape[-1],
-                                w_q4.shape[1], x.dtype.itemsize,
-                                w_bytes=0.5, ws_temp=_Q4_TEMP_BYTES,
-                                rs_temp=_Q4_TEMP_BYTES)
-        if sel is not None and sel[0] == "rs":
-            bm, kb, _ = sel[1]
-            return q4_matmul(x, w_q4, w_scale, block_m=bm,
-                             block_n=w_q4.shape[1], block_k=kb)
-        if sel is not None:
-            return q4_matmul_ws(x, w_q4, w_scale)
-    return q4_matmul(x, w_q4, w_scale) if on_tpu \
-        else q4_matmul_xla(x, w_q4, w_scale)

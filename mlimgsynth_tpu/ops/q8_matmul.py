@@ -1,23 +1,18 @@
-"""Weight-only int8 matmul: Pallas kernel with in-VMEM dequantization.
+"""Weight-only int8 matmul: dequantize, then a plain dot.
 
-The reference computes directly on ggml-quantized weights (q8_0 etc.) to cut
-memory; the TPU-native equivalent keeps weights as int8 in HBM with
-per-[128 x column] float scales and dequantizes tiles in VMEM right before
-the MXU dot.  Weight HBM footprint and bandwidth halve vs bf16; activations
-stay bf16 and accumulation is float32.
+The reference computes directly on ggml-quantized weights (q8_0 etc.) to
+cut memory; here weights stay int8 in device memory with per-[128 x column]
+float scales and are dequantized to the activation dtype right before the
+dot.  The weight footprint halves against bf16; activations keep their
+dtype and XLA decides where the dequantization runs.
 
 Quantization: symmetric per (K-block=128, output-column) group:
 ``w = q * scale``, ``q`` int8, ``scale = max|w_block| / 127``.
 """
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 KBLOCK = 128
 
@@ -37,666 +32,10 @@ def quantize_weight(w: np.ndarray):
             scale.reshape(k // KBLOCK, n))
 
 
-def _q8_kernel(x_ref, w_ref, s_ref, o_ref, acc_ref, *, n_kb, g):
-    """One [bm, KB] x [KB, bn] tile, KB = g * 128 scale groups.
-
-    Round-4 restructure (docs/BENCH.md queue #25): the original kernel
-    stepped K in 128-wide slabs, paying a full f32 [bm, bn] accumulator
-    read-modify-write (plus the product-scale multiply) per slab — ~2 VPU
-    ops per output element per 128 MACs, which caps the kernel near ~50%
-    MXU and showed up as the +43% e2e cost of -q8 on SD3.  Now the scale
-    is applied to the (already converted) weight tile — KB*bn/(bm*bn) =
-    KB/bm VPU ops per output — and the accumulator is touched once per
-    KB.  The weight dequant rounds through x.dtype (bf16 in production):
-    relative error <= 2^-9 per element, half the inherent int8
-    quantization noise."""
-    ik = pl.program_id(2)
-
-    @pl.when(ik == 0)
-    def _init():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    x = x_ref[...]                      # [bm, KB]
-    w = w_ref[...]                      # [KB, bn] int8
-    s = s_ref[...]                      # [g, 8, bn] f32 (sublane-padded)
-    kb, bn = w.shape
-    wd = w.astype(jnp.float32).reshape(g, kb // g, bn) * s[:, 0:1, :]
-    wd = wd.reshape(kb, bn).astype(x_ref.dtype)
-    acc_ref[:] += jax.lax.dot_general(
-        x, wd, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32)
-
-    @pl.when(ik == n_kb - 1)
-    def _done():
-        o_ref[...] = acc_ref[:].astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "block_n",
-                                              "block_k"))
-def q8_matmul(x, w_q8, w_scale, block_m: int = 256, block_n: int = 512,
-              block_k: int | None = None):
-    """x: [..., K] bf16/f32, w_q8: [K, N] int8, w_scale: [K/128, N] f32
-    -> [..., N] in x.dtype.  ``block_k`` overrides the inner K block
-    (row-sweep dispatch uses it with block_n=N, see :func:`_plan_rs`)."""
-    orig_shape = x.shape
-    k = x.shape[-1]
-    n = w_q8.shape[1]
-    x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    # inner K block: the largest 128-multiple (up to 1024) dividing K —
-    # bigger dots, one accumulator pass per KB instead of per 128.
-    # ODD 128-multiples (sd35-large d_model 2432 = 19x128, 19 prime) have
-    # no such divisor and used to fall all the way to kb=128 — the
-    # per-slab accumulator pathology the queue-#25 restructure removed
-    # (measured: sd35-large linears at ~18% MXU, 1305 ms of a 1610 ms
-    # step, queue #32).  Run K as ONE block instead: the accumulator is
-    # touched once and block_n is bounded so the dequant tile fits VMEM.
-    cands = [c for c in (1024, 512, 256) if k % c == 0]
-    if block_k is not None and k % block_k == 0 and block_k % KBLOCK == 0:
-        kb_in = block_k
-    elif cands:
-        kb_in = cands[0]
-    elif k <= 4096:
-        kb_in = k
-        block_n = min(block_n, 256)
-    else:
-        kb_in = 128
-    g = kb_in // KBLOCK
-    n_kb = k // kb_in
-
-    bm = min(block_m, max(8, 1 << (m - 1).bit_length()))
-    for cand in (block_n, 256, 128):
-        if n % cand == 0:
-            bn = cand
-            break
-    else:
-        bn = n  # small/odd widths run as one block
-    m_p = pl.cdiv(m, bm) * bm
-    if m_p != m:
-        x2 = jnp.pad(x2, ((0, m_p - m), (0, 0)))
-
-    # TPU blocks need the last two dims >= (8, 128)-aligned; give the
-    # per-k-block scale rows an 8-wide sublane dim
-    scale8 = jnp.broadcast_to(w_scale[:, None, :], (k // KBLOCK, 8, n))
-
-    out = pl.pallas_call(
-        functools.partial(_q8_kernel, n_kb=n_kb, g=g),
-        grid=(m_p // bm, n // bn, n_kb),
-        in_specs=[
-            pl.BlockSpec((bm, kb_in), lambda i, j, ik: (i, ik)),
-            pl.BlockSpec((kb_in, bn), lambda i, j, ik: (ik, j)),
-            pl.BlockSpec((g, 8, bn), lambda i, j, ik: (ik, 0, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, ik: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_p, n), x.dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-    )(x2, w_q8, scale8)
-    return out[:m].reshape(orig_shape[:-1] + (n,))
-
-
-# ---------------------------------------------------------------------------
-# Weight-stationary variant for the DiT large-M regime.
-#
-# The default grid (m, n, k) streams the weight matrix once per m-block:
-# at sd35-large shapes (M = 8500 joint tokens, bm = 256) every linear's
-# int8 weights cross HBM ~34 times per step, and the in-VMEM dequant VPU
-# work multiplies the same way (queue #33: linears ~640 ms of a 933 ms
-# step vs a 233 ms floor).  Here the grid is (n, m) with the FULL-K
-# weight stripe as the block: the stripe's index map depends only on the
-# outer n index, so Mosaic keeps it resident across the whole inner m
-# sweep — each weight byte crosses HBM exactly once per call, and each
-# stripe is dequantized once per (n-stripe, m-block) with K-slab
-# granularity chosen to keep the bf16 tile inside scoped VMEM.
-# Activations re-cross once per n-stripe (M x K << W for these shapes).
-# ---------------------------------------------------------------------------
-
-_WS_BUDGET = 14 << 20   # scoped-vmem stack budget (16 MiB minus slack)
-
-# cost-model constants (v5e): ~810 GB/s HBM, ~197 TFLOPS bf16 MXU
-_WS_FLOP_PER_BYTE = 243.0
-# int8 MXU runs 2x bf16 on v5e; the fused per-(token, slab) activation
-# quantization costs ~5 VPU ops/element per n-stripe, charged here in
-# HBM-bytes-equivalent per element (calibrated against the queue-38
-# seven-shape kernel table, tools/q8_cost_calib.py)
-_INT8_MXU_GAIN = 2.0
-_INT8_QUANT_EQ = 1.0
-
-
-def _plan_ws(m, k, n, xb, ob, w_bytes=1.0, temp_bytes=2, int8=False):
-    """(bm, bn, slab) for the weight-stationary grid, or None when no
-    geometry fits the VMEM budget.
-
-    bn does NOT need to divide N: the grid runs cdiv(n, bn) stripes and
-    the final stripe's out-of-range columns are clipped on the masked
-    output write.  A matmul's output columns depend only on the same
-    weight/scale columns, so whatever the bounded tail read returns in
-    the overhang never reaches a kept column — no in-kernel masking is
-    needed.  This matters for the odd-x128 DiT dims (sd35-large 2432 =
-    19x128, 7296 = 57x128): divisor-only planning was stuck at bn=128,
-    re-streaming the activations n/128 times (queue #36: the residual
-    gap above the memory floor).
-
-    Candidates are scored with a bytes-equivalent model: activations
-    cross HBM once per stripe, weights once, output once, plus an
-    MXU-time term (in equal-time bytes) that charges the padded-N
-    compute and penalises bm < 128 row underfill.  ``w_bytes`` is bytes
-    per weight element (0.5 for packed int4), ``temp_bytes`` the
-    per-element in-kernel dequant temp cost (int4 adds an i32 unpack)."""
-    cands = [c for c in (1024, 512, 256) if k % c == 0]
-    slab = cands[0] if cands else (k if k <= 4096 else None)
-    if slab is None or k % KBLOCK:
-        return None
-    g = k // KBLOCK
-    best = None
-    for bnb in range(1, min((n + KBLOCK - 1) // KBLOCK, 16) + 1):
-        bn = bnb * KBLOCK
-        stripes = -(-n // bn)
-        for bm in (512, 256, 128, 64):
-            use = (2 * k * bn * w_bytes  # weight stripe, double-buffered
-                   + 2 * bm * k * xb     # activation block
-                   + 2 * g * 8 * bn * 4  # sublane-padded scales
-                   + 2 * bm * bn * ob    # output block
-                   + bm * bn * 4         # f32 accumulator chain
-                   + slab * bn * temp_bytes)   # dequant tile
-            if use > _WS_BUDGET:
-                continue
-            n_pad = stripes * bn
-            mem = (m * k * xb * stripes       # x re-crosses per stripe
-                   + k * n_pad * w_bytes      # weights once
-                   + m * n * ob)              # output once
-            mxu = (2.0 * m * k * n_pad / _WS_FLOP_PER_BYTE
-                   / (min(bm, 128) / 128.0))
-            if int8:
-                # int8 MXU dots run 2x; fused activation quantization is
-                # re-done per stripe (the x block is re-read anyway)
-                mxu /= _INT8_MXU_GAIN
-                mem += m * k * stripes * _INT8_QUANT_EQ
-            score = mem + mxu
-            if best is None or score < best[0]:
-                best = (score, bm, bn)
-            break   # largest feasible bm; smaller only shrinks the MXU
-    if best is None:
-        return None
-    return best[1], best[2], slab, best[0]
-
-
-def _plan_rs(m, k, n, xb, ob, w_bytes=1.0, temp_bytes=2):
-    """(bm, kb, score) for the ROW-SWEEP strategy, or None.
-
-    Row-sweep = the default (m, n, k) grid with block_n = N (one output
-    stripe) and a f32 VMEM accumulator over K chunks: activations cross
-    HBM once, weights once per m-block.  This beats weight-stationary in
-    the mlp-down regime (K >> N: sd35-large 9728->2432, flux
-    12288->3072), where ws's full-K stripe forces a narrow bn and the
-    activations re-stream n/bn times — for flux-dn that is 24 x 113 MB
-    vs row-sweep's one x pass + 18 weight re-reads (~3.3x fewer bytes).
-    Requires the [bm, N] f32 accumulator + [kb, N] dequant tile to fit
-    scoped VMEM, which bounds it to moderate N."""
-    if k % KBLOCK or n % KBLOCK:
-        return None
-    kb_cands = [c for c in (1024, 512, 256, 128) if k % c == 0]
-    if k <= 2048:
-        kb_cands.insert(0, k)
-    best = None
-    for kb in kb_cands:
-        g = kb // KBLOCK
-        for bm in (512, 256, 128, 64):
-            use = (2 * bm * kb * xb         # activation block
-                   + 2 * kb * n * w_bytes   # weight tile
-                   + 2 * g * 8 * n * 4      # sublane-padded scales
-                   + 2 * bm * n * ob        # output block
-                   + bm * n * 4             # f32 accumulator scratch
-                   + kb * n * temp_bytes)   # dequant tile
-            if use > _WS_BUDGET:
-                continue
-            m_blocks = -(-m // bm)
-            mem = (m * k * xb               # x once
-                   + m_blocks * k * n * w_bytes   # weights per m-block
-                   + m * n * ob)
-            mxu = (2.0 * m * k * n / _WS_FLOP_PER_BYTE
-                   / (min(bm, 128) / 128.0))
-            score = mem + mxu
-            if best is None or score < best[0]:
-                best = (score, bm, kb)
-            break
-    if best is None:
-        return None
-    return best[1], best[2], best[0]
-
-
-def _q8_ws_kernel(x_ref, w_ref, s_ref, o_ref, *, slab, gs):
-    """One [bm, K] x [K, bn] product, full-K stripe resident; grid (n, m)
-    with m innermost so w/s blocks (indexed by n only) are fetched once."""
-    kk, bn = w_ref.shape
-    acc = None
-    for si in range(kk // slab):
-        w = w_ref[si * slab:(si + 1) * slab, :]
-        s = s_ref[si * gs:(si + 1) * gs, 0:1, :]
-        wd = (w.astype(jnp.float32).reshape(gs, KBLOCK, bn) * s)
-        wd = wd.reshape(slab, bn).astype(x_ref.dtype)
-        part = jax.lax.dot_general(
-            x_ref[:, si * slab:(si + 1) * slab], wd,
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.float32)
-        acc = part if acc is None else acc + part
-    o_ref[...] = acc.astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "block_n"))
-def q8_matmul_ws(x, w_q8, w_scale, block_m: int | None = None,
-                 block_n: int | None = None):
-    """Weight-stationary q8 dq matmul.  x: [..., K], w_q8: [K, N] int8,
-    w_scale: [K/128, N] f32 -> [..., N] in x.dtype.  Caller must check
-    :func:`ws_plan` first (raises when no geometry fits).  block_m /
-    block_n override the planner's geometry (A/B harness use)."""
-    orig_shape = x.shape
-    k = x.shape[-1]
-    n = w_q8.shape[1]
-    x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    plan = _plan_ws(m, k, n, x.dtype.itemsize, x.dtype.itemsize)
-    if plan is None:
-        raise ValueError(f"no ws geometry for K={k}, N={n}")
-    bm, bn, slab = plan[:3]
-    if block_m is not None:
-        bm = block_m
-    if block_n is not None:
-        bn = block_n
-    bm = min(bm, max(8, 1 << (m - 1).bit_length()))
-    m_p = pl.cdiv(m, bm) * bm
-    if m_p != m:
-        x2 = jnp.pad(x2, ((0, m_p - m), (0, 0)))
-    scale8 = jnp.broadcast_to(w_scale[:, None, :], (k // KBLOCK, 8, n))
-
-    out = pl.pallas_call(
-        functools.partial(_q8_ws_kernel, slab=slab, gs=slab // KBLOCK),
-        grid=(pl.cdiv(n, bn), m_p // bm),
-        in_specs=[
-            pl.BlockSpec((bm, k), lambda j, i: (i, 0)),
-            pl.BlockSpec((k, bn), lambda j, i: (0, j)),
-            pl.BlockSpec((k // KBLOCK, 8, bn), lambda j, i: (0, 0, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda j, i: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_p, n), x.dtype),
-    )(x2, w_q8, scale8)
-    return out[:m].reshape(orig_shape[:-1] + (n,))
-
-
-# --- int8-MXU weight-stationary variant -----------------------------------
-#
-# The per-[128 x column] scale format forces the int8 path to rescale
-# every 128 rows (the per-slab accumulator cost that made MLIS_Q8_MODE=
-# int8 lose its A/Bs).  With PER-COLUMN weight scales the int32 MXU dot
-# runs whole K-slabs and the f32 accumulator is touched once per slab;
-# activations quantize per (token, slab) inside the kernel.  This is an
-# opt-in speed tier (per-column int8 carries more quantization error
-# than per-block) aimed at the compute-bound 8B/12B DiT regime, where
-# int8 MXU throughput is 2x bf16 on v5e.
-
-
-def quantize_weight_percol(w: np.ndarray):
-    """[K, N] float -> (int8 [K, N], f32 scales [N]): symmetric
-    per-output-column quantization (TensorRT-style W8 per-channel)."""
-    w = np.asarray(w, np.float32)
-    amax = np.abs(w).max(axis=0)
-    scale = (amax / 127.0).astype(np.float32)
-    q = np.clip(np.round(w / np.maximum(scale, 1e-30)), -127, 127)
-    return q.astype(np.int8), scale
-
-
-def percol_from_blocks(q: np.ndarray, s_block: np.ndarray):
-    """Convert a stored per-[128 x column] q8 pair to per-column format:
-    (int8 [K, N], f32 [N], scale_ratio).
-
-    ``scale_ratio`` is the worst column's within-column dynamic range,
-    ``max_n s_col[n] / median_b s_block[b, n]`` — how many per-block
-    quantization steps one per-column step swallows for the column's
-    TYPICAL block.  Normal-ish weights sit near 1.4 (column amax over
-    more samples vs 128); a column whose range is dominated by one
-    outlier block loses log2(ratio) bits on every other block and the
-    caller keeps per-block storage (:data:`PERCOL_MAX_SCALE_RATIO`).
-    A global RMS metric can NOT catch this — the outlier block
-    dominates the norm exactly when it dominates the range."""
-    k, n = q.shape
-    w = (q.astype(np.float32).reshape(k // KBLOCK, KBLOCK, n)
-         * s_block[:, None, :]).reshape(k, n)
-    amax = np.abs(w).max(axis=0)
-    s_col = (amax / 127.0).astype(np.float32)
-    q2 = np.clip(np.round(w / np.maximum(s_col, 1e-30)), -127, 127)
-    q2 = q2.astype(np.int8)
-    med = np.maximum(np.median(s_block, axis=0), 1e-30)
-    ratio = float(np.max(s_col / med))
-    return q2, s_col, ratio
-
-
-# worst-column s_col / median-block-scale allowed before the weight
-# stays per-block (= bits lost on the column's typical block: 8 -> 3)
-PERCOL_MAX_SCALE_RATIO = 8.0
-
-
-def dit_m_hint(height: int, width: int, *, flux: bool = False,
-               ctx_rows: int = 256) -> int:
-    """Shared token-count hint for the int8-MXU storage candidacy — the
-    ONE formula every caller (api session load, bench weight synthesis,
-    step_bench) must use so benches measure the exact storage mix the
-    session ships.  MMDiT stacks cond/uncond on the batch axis (2x);
-    flux runs 1 NFE/step (embedded guidance / cfg 1), so no doubling.
-    ``ctx_rows`` approximates the text rows joined to the image tokens
-    (T5 256 for flux; 77+77 CLIP + pooled padding for MMDiT — 256 is a
-    conservative shared ceiling)."""
-    tokens = (height // 16) * (width // 16) + ctx_rows
-    return tokens if flux else 2 * tokens
-
-
-def _int8ws_mode() -> str:
-    import os
-    v = os.environ.get("MLIS_Q8_INT8WS", "auto").lower()
-    return "off" if v in ("", "0", "false", "no", "off") else v
-
-
-def percol_eligible(k, n, m_hint=8192, itemsize=2) -> bool:
-    """Storage-format decision: should an eligible [K, N] linear weight
-    be stored per-COLUMN (int8-MXU ws candidacy) instead of per-block?
-
-    Per queue-38 (docs/BENCH.md): ws-int8 wins 5/7 DiT shapes by 10-23%;
-    only the K >> N mlp-down regime loses (to rs).  ``m_hint`` is the
-    large-M token count the session expects (CFG joint tokens for DiT).
-    Gated by MLIS_Q8_INT8WS (default auto; off/force)."""
-    mode = _int8ws_mode()
-    if mode == "off":
-        return False
-    if k % KBLOCK or n % KBLOCK:
-        return False
-    # small-M sessions (incl. tiny-geometry tests) never reach the int8
-    # kernel — keep the checkpoint's stored format
-    if m_hint < _WS_MIN_M and mode != "force":
-        return False
-    i8 = _plan_ws(m_hint, k, n, itemsize, itemsize, temp_bytes=6,
-                  int8=True)
-    if i8 is None:
-        return False
-    if mode == "force":
-        return True
-    wsp = _plan_ws(m_hint, k, n, itemsize, itemsize)
-    rsp = None if _rs_mode() == "off" else _plan_rs(m_hint, k, n,
-                                                    itemsize, itemsize)
-    others = [p[-1] for p in (wsp, rsp) if p is not None]
-    return not others or i8[-1] < min(others)
-
-
-def _ws_slab(k: int):
-    cands = [c for c in (1024, 512, 256) if k % c == 0]
-    return cands[0] if cands else (k if k <= 4096 else None)
-
-
-def _q8_ws_int8_kernel(x_ref, w_ref, s_ref, o_ref, *, slab):
-    """Weight-stationary int8 MXU: full-K int8 stripe resident, int8 x
-    int8 -> int32 dots per slab, per-(token, slab) activation scales."""
-    kk, bn = w_ref.shape
-    acc = None
-    for si in range(kk // slab):
-        xs = x_ref[:, si * slab:(si + 1) * slab].astype(jnp.float32)
-        amax = jnp.max(jnp.abs(xs), axis=1, keepdims=True)
-        inv = jnp.where(amax > 0, 127.0 / amax, 0.0)
-        xq = jnp.round(xs * inv).astype(jnp.int8)
-        part = jax.lax.dot_general(
-            xq, w_ref[si * slab:(si + 1) * slab, :],
-            dimension_numbers=(((1,), (0,)), ((), ())),
-            preferred_element_type=jnp.int32)
-        part = part.astype(jnp.float32) * (amax * (1.0 / 127.0))
-        acc = part if acc is None else acc + part
-    o_ref[...] = (acc * s_ref[0:1, :]).astype(o_ref.dtype)
-
-
-@jax.jit
-def q8_matmul_ws_int8(x, w_q8, s_col):
-    """Weight-stationary int8-MXU matmul with per-column weight scales.
-    x: [..., K], w_q8: [K, N] int8 (per-column quantized), s_col: [N]
-    f32 -> [..., N] in x.dtype."""
-    orig_shape = x.shape
-    k = x.shape[-1]
-    n = w_q8.shape[1]
-    x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    plan = _plan_ws(m, k, n, x.dtype.itemsize, x.dtype.itemsize,
-                    temp_bytes=6,   # f32 + int8 act-quant temps, no wd
-                    int8=True)
-    if plan is None:
-        raise ValueError(f"no ws geometry for K={k}, N={n}")
-    bm, bn, slab = plan[:3]
-    bm = min(bm, max(8, 1 << (m - 1).bit_length()))
-    m_p = pl.cdiv(m, bm) * bm
-    if m_p != m:
-        x2 = jnp.pad(x2, ((0, m_p - m), (0, 0)))
-    s8 = jnp.broadcast_to(s_col[None, :], (8, n))
-
-    out = pl.pallas_call(
-        functools.partial(_q8_ws_int8_kernel, slab=slab),
-        grid=(pl.cdiv(n, bn), m_p // bm),
-        in_specs=[
-            pl.BlockSpec((bm, k), lambda j, i: (i, 0)),
-            pl.BlockSpec((k, bn), lambda j, i: (0, j)),
-            pl.BlockSpec((8, bn), lambda j, i: (0, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda j, i: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_p, n), x.dtype),
-    )(x2, w_q8, s8)
-    return out[:m].reshape(orig_shape[:-1] + (n,))
-
-
-def q8_ws_int8_xla(x, w_q8, s_col, slab=None):
-    """XLA emulation of the per-(token, slab) activation quantization +
-    per-column weight scales; the kernel's test oracle."""
-    k, n = w_q8.shape
-    if slab is None:
-        slab = _ws_slab(k)
-    orig = x.shape
-    x2 = x.reshape(-1, k // slab, slab).astype(jnp.float32)
-    amax = jnp.max(jnp.abs(x2), axis=2, keepdims=True)
-    inv = jnp.where(amax > 0, 127.0 / amax, 0.0)
-    xq = jnp.round(x2 * inv).astype(jnp.int32)
-    wq = w_q8.reshape(k // slab, slab, n).astype(jnp.int32)
-    part = jnp.einsum("mbk,bkn->mbn", xq, wq).astype(jnp.float32)
-    out = (part * (amax * (1.0 / 127.0))).sum(axis=1) * s_col[None, :]
-    return out.astype(x.dtype).reshape(orig[:-1] + (n,))
-
-
-# ws pays when the default grid would reload the weight stripe many
-# times: several m-blocks AND a weight matrix big enough to dominate
-_WS_MIN_M = 2048
-
-
-def ws_eligible(m, k, n, itemsize=2) -> bool:
-    import os
-    v = os.environ.get("MLIS_Q8_WS", "auto").lower()
-    if v in ("", "0", "false", "no", "off"):
-        return False
-    if v == "force":
-        return True
-    return (m >= _WS_MIN_M
-            and _plan_ws(m, k, n, itemsize, itemsize) is not None)
-
-
-# ---------------------------------------------------------------------------
-# True int8 MXU path: dynamic per-(token, K-block) activation quantization
-# fused into the kernel, int8 x int8 -> int32 MXU dot (2x bf16 MXU
-# throughput on v5e), f32 rescale.  This is the TPU-native counterpart of
-# the reference computing from quantized weights
-# (src/ccompute/tensorstore.c:184-254).
-# ---------------------------------------------------------------------------
-
-def _q8q8_kernel(x_ref, w_ref, s_ref, o_ref, acc_ref, *, n_kb):
-    ik = pl.program_id(2)
-
-    @pl.when(ik == 0)
-    def _init():
-        acc_ref[:] = jnp.zeros_like(acc_ref)
-
-    x = x_ref[...].astype(jnp.float32)     # [bm, KBLOCK]
-    amax = jnp.max(jnp.abs(x), axis=1, keepdims=True)     # [bm, 1]
-    inv = jnp.where(amax > 0, 127.0 / amax, 0.0)
-    xq = jnp.round(x * inv).astype(jnp.int8)
-    w = w_ref[...]                          # [KBLOCK, bn] int8
-    part = jax.lax.dot_general(
-        xq, w, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.int32)
-    s = s_ref[0, 0:1, :]                    # [1, bn] f32 weight scales
-    acc_ref[:] += part.astype(jnp.float32) * ((amax * (1.0 / 127.0)) * s)
-
-    @pl.when(ik == n_kb - 1)
-    def _done():
-        o_ref[...] = acc_ref[:].astype(o_ref.dtype)
-
-
-@functools.partial(jax.jit, static_argnames=("block_m", "block_n"))
-def q8_matmul_int8(x, w_q8, w_scale, block_m: int = 256,
-                   block_n: int = 512):
-    """int8 x int8 MXU matmul with fused dynamic activation quantization.
-    x: [..., K], w_q8: [K, N] int8, w_scale: [K/128, N] f32."""
-    orig_shape = x.shape
-    k = x.shape[-1]
-    n = w_q8.shape[1]
-    x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    n_kb = k // KBLOCK
-
-    bm = min(block_m, max(8, 1 << (m - 1).bit_length()))
-    for cand in (block_n, 256, 128):
-        if n % cand == 0:
-            bn = cand
-            break
-    else:
-        bn = n
-    m_p = pl.cdiv(m, bm) * bm
-    if m_p != m:
-        x2 = jnp.pad(x2, ((0, m_p - m), (0, 0)))
-    scale8 = jnp.broadcast_to(w_scale[:, None, :], (n_kb, 8, n))
-
-    out = pl.pallas_call(
-        functools.partial(_q8q8_kernel, n_kb=n_kb),
-        grid=(m_p // bm, n // bn, n_kb),
-        in_specs=[
-            pl.BlockSpec((bm, KBLOCK), lambda i, j, ik: (i, ik)),
-            pl.BlockSpec((KBLOCK, bn), lambda i, j, ik: (ik, j)),
-            pl.BlockSpec((1, 8, bn), lambda i, j, ik: (ik, 0, j)),
-        ],
-        out_specs=pl.BlockSpec((bm, bn), lambda i, j, ik: (i, j)),
-        out_shape=jax.ShapeDtypeStruct((m_p, n), x.dtype),
-        scratch_shapes=[pltpu.VMEM((bm, bn), jnp.float32)],
-    )(x2, w_q8, scale8)
-    return out[:m].reshape(orig_shape[:-1] + (n,))
-
-
-def q8_matmul_int8_xla(x, w_q8, w_scale):
-    """XLA emulation of the int8 path (same per-(token, K-block) dynamic
-    activation quantization); used off-TPU and as the kernel's test oracle."""
-    k, n = w_q8.shape
-    orig = x.shape
-    x2 = x.reshape(-1, k // KBLOCK, KBLOCK).astype(jnp.float32)
-    amax = jnp.max(jnp.abs(x2), axis=2, keepdims=True)      # [m, kb, 1]
-    inv = jnp.where(amax > 0, 127.0 / amax, 0.0)
-    xq = jnp.round(x2 * inv).astype(jnp.int32)
-    wq = w_q8.reshape(k // KBLOCK, KBLOCK, n).astype(jnp.int32)
-    part = jnp.einsum("mbk,bkn->mbn", xq, wq).astype(jnp.float32)
-    out = (part * (amax * (1.0 / 127.0)) * w_scale[None]).sum(axis=1)
-    return out.astype(x.dtype).reshape(orig[:-1] + (n,))
-
-
-def q8_matmul_xla(x, w_q8, w_scale):
-    """Weight-only fallback path: dequantize then matmul (used off-TPU)."""
+def q8_dot(x, w_q8, w_scale):
+    """x @ dequant(w): dequantize, then matmul in x's dtype."""
     k, n = w_q8.shape
     w = (w_q8.astype(jnp.float32).reshape(k // KBLOCK, KBLOCK, n)
          * w_scale[:, None, :]).reshape(k, n)
     return jnp.dot(x, w.astype(x.dtype))
 
-
-def _rs_mode() -> str:
-    # default auto since the queue-39 hardware A/B: rs wins the K>>N
-    # mlp-down regime (flux-dn 3.47 vs ws 9.91 ms; flux-schnell e2e
-    # 3.11 -> 2.98 s) and is neutral elsewhere (sd35-large 15.17 vs
-    # 15.10 s).  docs/BENCH.md queue #39.
-    import os
-    v = os.environ.get("MLIS_Q8_RS", "auto").lower()
-    return "off" if v in ("", "0", "false", "no", "off") else v
-
-
-def pick_large_m_plan(m, k, n, itemsize, w_bytes=1.0, ws_temp=2,
-                      rs_temp=2, percol=False):
-    """Large-M strategy selection: ("ws"|"rs"|"int8ws", plan) / None.
-    Gated by MLIS_Q8_WS (master switch, default auto), MLIS_Q8_RS
-    (row-sweep candidacy, default auto) and MLIS_Q8_INT8WS (int8-MXU
-    candidacy for per-COLUMN-quantized weights, default auto); "force"
-    on any pins that strategy.  auto picks the lowest bytes-equivalent
-    score.  ``percol=True`` says the weight is stored with per-column
-    scales, making the int8-MXU ws kernel a candidate (dq strategies
-    stay available via scale broadcast)."""
-    import os
-    v = os.environ.get("MLIS_Q8_WS", "auto").lower()
-    if v in ("", "0", "false", "no", "off"):
-        return None
-    if m < _WS_MIN_M and v != "force":
-        return None
-    wsp = _plan_ws(m, k, n, itemsize, itemsize, w_bytes=w_bytes,
-                   temp_bytes=ws_temp)
-    rs = _rs_mode()
-    rsp = None if rs == "off" else _plan_rs(m, k, n, itemsize, itemsize,
-                                            w_bytes=w_bytes,
-                                            temp_bytes=rs_temp)
-    i8mode = _int8ws_mode() if percol else "off"
-    i8p = None if i8mode == "off" else _plan_ws(
-        m, k, n, itemsize, itemsize, temp_bytes=6, int8=True)
-    if i8mode == "force" and i8p is not None:
-        return ("int8ws", i8p)
-    if v == "force":
-        return ("ws", wsp) if wsp else None
-    if rs == "force":
-        return ("rs", rsp) if rsp else (("ws", wsp) if wsp else None)
-    cands = [(p[-1], tag, p) for tag, p in
-             (("ws", wsp), ("rs", rsp), ("int8ws", i8p)) if p is not None]
-    if not cands:
-        return None
-    _, tag, p = min(cands, key=lambda c: c[0])
-    return (tag, p)
-
-
-def q8_dot(x, w_q8, w_scale):
-    """Dispatch.  MLIS_Q8_MODE selects the execution strategy:
-    ``dq`` (default) = weight-only in-VMEM dequant, bf16 MXU dot;
-    ``int8`` = int8 x int8 MXU with fused dynamic activation quant.
-    Measured on v5e (docs/BENCH.md): dq 0.837 s vs int8 0.937 s SD1.5
-    e2e — the bf16 dot + XLA fusions beat the int8 MXU at these shapes,
-    so dq is the default.  In the large-M regime the grid strategy
-    (weight-stationary vs row-sweep) is picked by a bytes-equivalent
-    cost model (:func:`pick_large_m_plan`).  Off-TPU the same modes run
-    as XLA emulations."""
-    import os
-    mode = os.environ.get("MLIS_Q8_MODE", "dq")
-    on_tpu = jax.default_backend() == "tpu" and w_q8.shape[1] % 128 == 0
-    percol = w_scale.ndim == 1
-    if percol:
-        # per-COLUMN-quantized storage (percol_eligible said the
-        # int8-MXU ws kernel should be a candidate at this shape)
-        k, n = w_q8.shape
-        m = int(np.prod(x.shape[:-1]))
-        sel = pick_large_m_plan(m, k, n, x.dtype.itemsize, percol=True) \
-            if w_q8.shape[0] % 128 == 0 else None
-        if sel is not None and sel[0] == "int8ws":
-            if on_tpu:
-                return q8_matmul_ws_int8(x, w_q8, w_scale)
-            return q8_ws_int8_xla(x, w_q8, w_scale)
-        # dq strategies run off broadcast block scales
-        w_scale = jnp.broadcast_to(w_scale[None, :], (k // KBLOCK, n))
-    if mode == "int8":
-        return q8_matmul_int8(x, w_q8, w_scale) if on_tpu \
-            else q8_matmul_int8_xla(x, w_q8, w_scale)
-    if on_tpu:
-        sel = pick_large_m_plan(int(np.prod(x.shape[:-1])), x.shape[-1],
-                                w_q8.shape[1], x.dtype.itemsize)
-        if sel is not None and sel[0] == "rs":
-            bm, kb, _ = sel[1]
-            return q8_matmul(x, w_q8, w_scale, block_m=bm,
-                             block_n=w_q8.shape[1], block_k=kb)
-        if sel is not None:
-            return q8_matmul_ws(x, w_q8, w_scale)
-    return q8_matmul(x, w_q8, w_scale) if on_tpu \
-        else q8_matmul_xla(x, w_q8, w_scale)

@@ -1,11 +1,12 @@
-"""Multi-chip execution: device mesh + sharding rules.
+"""Multi-device execution: device mesh + sharding rules.
 
 The reference is strictly single-device (SURVEY.md section 2.5); this module
-is the TPU-native scaling layer it lacks: a ``jax.sharding.Mesh`` over
+is the scaling layer it lacks: a ``jax.sharding.Mesh`` over
 (data, tensor) axes, named shardings for the UNet/CLIP params (attention and
 feed-forward matmuls sharded over the ``tp`` axis in Megatron style: qkv
 column-parallel, out-projection row-parallel), and batch sharding over ``dp``.
-XLA's SPMD partitioner inserts the all-reduce/all-gather collectives over ICI.
+XLA's SPMD partitioner inserts the all-reduce/all-gather collectives (NCCL
+on GPUs, whose cards a host joins all to all over NVLink).
 """
 from __future__ import annotations
 
@@ -26,8 +27,8 @@ def make_mesh(n_devices: Optional[int] = None, tp: int = 1, sp: int = 1,
               pp: int = 1, devices=None) -> Mesh:
     """Create a (dp, pp, sp, tp) mesh over the first ``n_devices`` devices.
 
-    ``tp`` is innermost (fastest-varying device index — the per-matmul
-    all-reduces ride the shortest ICI hops), ``sp`` next (the ring
+    ``tp`` is innermost (fastest-varying device index, the most frequent
+    collectives: one all-reduce per matmul), ``sp`` next (the ring
     attention ppermute ring), ``pp`` next (stage handoffs are one hop per
     microbatch tick), ``dp`` is outermost (no per-step collectives).
     """

@@ -7,7 +7,7 @@ parallelism for the transformer DiT families: the block stack is cut into
 live only on its stage devices (a ``[pp, L, ...]`` slab sharded over
 ``pp``), and microbatches stream through the stages — stage ``s`` works on
 microbatch ``t - s`` at tick ``t`` while its neighbours work on adjacent
-microbatches, with the activations handed one ICI hop per tick via
+microbatches, with the activations handed to the next stage each tick via
 ``lax.ppermute``.
 
 SPMD formulation (every device runs the same program inside
@@ -22,8 +22,7 @@ SPMD formulation (every device runs the same program inside
   output buffer (written only by the last stage) is ``psum``'d over ``pp``
   to replicate the result.
 
-Weight memory per device is O(params/pp) — the pp analog of the memory
-math that makes the 12B Flux fit one v5e only when quantized.
+Weight memory per device is O(params/pp).
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Explicit-collective tensor parallelism via shard_map.
 
-The default multi-chip path (parallel/mesh.py) uses GSPMD sharding
+The default multi-device path (parallel/mesh.py) uses GSPMD sharding
 annotations and lets XLA insert collectives.  This module is the explicit
 variant of the same Megatron recipe, written with ``jax.shard_map`` and
-hand-placed ``psum`` over the ICI mesh:
+hand-placed ``psum`` over the mesh:
 
 * attention: q/k/v projections column-parallel (each device owns
   ``n_head/tp`` heads), out-projection row-parallel, one ``psum`` to combine;
@@ -119,9 +119,7 @@ def tp_basic_transformer(mesh: Mesh, pre: str, n_head: int, d_model: int):
         q = lin("q_proj", q_in, False).reshape(n, sq, heads_local, d_head)
         k = lin("k_proj", kv_in, False).reshape(n, sk, heads_local, d_head)
         v = lin("v_proj", kv_in, False).reshape(n, sk, heads_local, d_head)
-        o = attention(q.transpose(0, 2, 1, 3), k.transpose(0, 2, 1, 3),
-                      v.transpose(0, 2, 1, 3), causal=causal)
-        o = o.transpose(0, 2, 1, 3).reshape(n, sq, d_local)
+        o = attention(q, k, v, causal=causal).reshape(n, sq, d_local)
         # row-parallel out projection: each device multiplies its slice,
         # psum combines partial sums over the tp axis
         w_out = p[f"{pre}.{name}.out_proj.weight"]

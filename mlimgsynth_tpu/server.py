@@ -1,11 +1,11 @@
 """HTTP serving mode.
 
-A lightweight stdlib server over a persistent session: weights stay in HBM
-and the sampling loop stays compiled across requests, so steady-state
-latency is the bench number (~0.65 s for SD1.5-512 on one v5e).  The
-reference has no serving story (single-shot CLI only).
+A lightweight stdlib server over a persistent session: weights stay in
+device memory and the sampling loop stays compiled across requests, so
+steady-state latency is the bench number.  The reference has no serving
+story (single-shot CLI only).
 
-TPU-native serving features on top of the bare session:
+Serving features on top of the bare session:
 
 * **request-merging batch queue** — concurrent requests whose shared
   sampling options match are merged into ONE device batch
@@ -52,7 +52,6 @@ Run: ./mlimgsynth serve -m MODEL [--port 8188]  or
 from __future__ import annotations
 
 import base64
-import io
 import json
 import os
 import sys
@@ -353,8 +352,8 @@ class _Pending:
 class Server:
     """``session`` may be a single MLImgSynth or a {name: session} dict
     (multi-model serving: requests route by their "model" key; the first
-    entry is the default).  Weights of every session stay resident in HBM,
-    so k models cost k weight sets but zero swap latency."""
+    entry is the default).  Weights of every session stay resident in
+    device memory, so k models cost k weight sets but zero swap latency."""
 
     def __init__(self, session, max_batch: int = 8,
                  merge_window_s: float = 0.02, start_worker: bool = True,
@@ -880,22 +879,14 @@ def _strip_data_url(b64: str) -> str:
 
 def _u8_png_b64(img_u8_hwc: np.ndarray) -> str:
     """uint8 [H,W,C] preview frame -> base64 PNG string."""
-    from PIL import Image
-    buf = io.BytesIO()
-    Image.fromarray(np.asarray(img_u8_hwc)).save(buf, format="PNG")
-    return base64.b64encode(buf.getvalue()).decode()
+    from .utils.image import png_encode
+    return base64.b64encode(png_encode(img_u8_hwc)).decode()
 
 
 def _png_bytes(img_nchw_1: np.ndarray, infotext: str) -> bytes:
-    from PIL import Image
-    from PIL.PngImagePlugin import PngInfo
     from .utils import image as image_mod
     arr = image_mod.tensor_to_image_arr(img_nchw_1[None], 0)
-    info = PngInfo()
-    info.add_text("parameters", infotext)
-    buf = io.BytesIO()
-    Image.fromarray(arr).save(buf, format="PNG", pnginfo=info)
-    return buf.getvalue()
+    return image_mod.png_encode(arr, infotext)
 
 
 def make_handler(srv: Server):
@@ -1124,15 +1115,12 @@ def make_handler(srv: Server):
                 return
             if self.path == "/sdapi/v1/png-info":
                 try:
-                    from PIL import Image
+                    from .utils.image import png_text_chunks
                     raw = base64.b64decode(
                         _strip_data_url(str(req.get("image", ""))))
-                    img = Image.open(io.BytesIO(raw))
-                    info = (img.text or {}).get("parameters", "") \
-                        if hasattr(img, "text") else ""
-                    self._json(200, {"info": info,
-                                     "items": dict(img.text or {})
-                                     if hasattr(img, "text") else {}})
+                    items = png_text_chunks(raw)
+                    self._json(200, {"info": items.get("parameters", ""),
+                                     "items": items})
                 except Exception as e:  # noqa
                     self._json(400, {"error": str(e)})
                 return
@@ -1294,19 +1282,21 @@ def warmup_generate(session) -> float:
     last-chunk decode) for the session's default size/steps by running one
     throwaway generation through generate_batch with a no-op cancellation
     callback — the exact program requests will hit.  Returns seconds spent.
-    First compiles take minutes on remote-attached TPU; doing it before
-    accepting traffic keeps the first user request at steady-state latency
-    (the persistent compile cache makes later process starts cheap)."""
+    Compiling before accepting traffic keeps the first user request at
+    steady-state latency (the persistent compile cache makes later process
+    starts cheap)."""
     t0 = time.time()
     session.generate_batch([{"prompt": "warmup", "seed": 0}],
                            step_callback=lambda i, n: False)
     return time.time() - t0
 
 
-def serve(session, port: int = 8188, host: str = "127.0.0.1",
-          warmup: bool = True, warmup_gen: bool = False,
-          model_dir: str = "", weight_type: str = "", launch_opts=(),
-          styles: str = ""):
+def make_server(session, port: int = 8188, host: str = "127.0.0.1",
+                warmup: bool = True, warmup_gen: bool = False,
+                model_dir: str = "", weight_type: str = "", launch_opts=(),
+                styles: str = "") -> ThreadingHTTPServer:
+    """Build the HTTP server over ``session`` (port 0 picks a free port;
+    ``httpd.server_address`` says which).  :func:`serve` runs it."""
     # cancellation needs a step callback; chunked progress keeps the
     # per-dispatch overhead at 1/chunk of step-at-a-time execution
     os.environ.setdefault("MLIS_PROGRESS_CHUNK", "4")
@@ -1324,8 +1314,13 @@ def serve(session, port: int = 8188, host: str = "127.0.0.1",
             if ses.c["model"]:
                 dt = warmup_generate(ses)
                 sys.stderr.write(f"[serve] warmed '{name}' in {dt:.1f}s\n")
-    httpd = ThreadingHTTPServer((host, port), make_handler(srv))
-    sys.stderr.write(f"[serve] listening on http://{host}:{port}\n")
+    return ThreadingHTTPServer((host, port), make_handler(srv))
+
+
+def serve(session, port: int = 8188, host: str = "127.0.0.1", **kw):
+    httpd = make_server(session, port=port, host=host, **kw)
+    sys.stderr.write(f"[serve] listening on http://{host}:"
+                     f"{httpd.server_address[1]}\n")
     httpd.serve_forever()
 
 

@@ -66,7 +66,7 @@ def spec_to_checkpoint_arrays(spec, seed=0, scale=0.05):
 
 
 def write_tiny_checkpoint(path, seed=0, dtype=np.float32):
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     spec = tiny_specs()
     arrays = spec_to_checkpoint_arrays(spec, seed=seed)
     if dtype != np.float32:
@@ -177,7 +177,7 @@ def spec_to_openclip_arrays(spec, prefix, seed=0, scale=0.05, root=None):
 
 def write_checkpoint_sd2(path, seed=0):
     """Tiny v-param model with OpenCLIP-layout text encoder (fused qkv)."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     spec = {}
     spec.update(B.trace_spec(
         lambda ctx, toks: clip_mod.clip_text_apply(ctx, toks, TINY_CLIP),
@@ -203,7 +203,7 @@ def write_checkpoint_sd2(path, seed=0):
 def write_checkpoint_sdxl(path, seed=0):
     """Tiny dual-encoder model: CompVis clip + OpenCLIP clip2 (fused qkv,
     with text_projection), labeled UNet."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     spec = {}
     spec.update(B.trace_spec(
         lambda ctx, toks: clip_mod.clip_text_apply(ctx, toks, TINY_CLIP),
@@ -235,7 +235,7 @@ def write_checkpoint_sdxl(path, seed=0):
 def write_tiny_tae(path, seed=0, ch_z=4):
     """Tiny taesd-format file (diffusers AutoencoderTiny names, no prefix).
     ``ch_z=16`` makes the taesd3/taef1 flow-family shape."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     from mlimgsynth_tpu.models import tae as tae_mod
     P = tae_mod.TaeParams(ch_inner=16, n_blk=1, ch_z=ch_z)
     spec = {}
@@ -260,7 +260,7 @@ def write_tiny_inpaint_checkpoint(path, seed=0):
     sd-v1-5-inpainting.  The session auto-detects n_ch_in from the
     in.conv weight shape."""
     import dataclasses
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     P9 = dataclasses.replace(TINY_UNET, n_ch_in=9)
     spec = {}
     spec.update(B.trace_spec(
@@ -298,7 +298,7 @@ def write_tiny_controlnet(path, seed=7, scale=0.05, zero_scale=0.05):
     layout.  Real ControlNets have zero-INITIALIZED zc/mid.out convs that
     train away from zero; ``zero_scale`` keeps them nonzero so the control
     path has a visible effect in tests (pass 0.0 for a no-op ControlNet)."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     spec = tiny_cnet_spec()
     rng = np.random.default_rng(seed)
     arrays = {}
@@ -315,7 +315,7 @@ def write_tiny_controlnet(path, seed=7, scale=0.05, zero_scale=0.05):
 
 def write_tiny_lora(path, target_names, spec, rank=2, seed=0, alpha=None):
     """LoRA file patching the given internal '<stem>.weight' tensors."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     from mlimgsynth_tpu.nameconv import internal_to_compvis
     rng = np.random.default_rng(seed)
     arrays = {}
@@ -355,7 +355,7 @@ def write_checkpoint_refiner(path, seed=0):
     """Tiny SDXL-refiner-like model: a single OpenCLIP-layout tower under
     ``conditioner.embedders.0.model.`` (fused qkv, with text_projection),
     labeled UNet with no level-0 attention."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     spec = {}
     spec.update(B.trace_spec(
         lambda ctx, toks: clip_mod.clip_text_apply(
@@ -437,7 +437,7 @@ def write_checkpoint_sd3(path, seed=0, P=None):
     towers (incl. Linear-stored text_projection) + 4-channel flow VAE
     (shift factor, no quant convs).  ``P`` swaps the MMDiT geometry (e.g.
     TINY_MMDIT_X for an SD3.5-medium-style dual-attention file)."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     from mlimgsynth_tpu.models import mmdit as mmdit_mod
     P = P or TINY_MMDIT
     spec = {}
@@ -477,7 +477,7 @@ def write_checkpoint_sd3(path, seed=0, P=None):
 def write_tiny_t5(path, seed=0):
     """Tiny T5 v1.1 encoder file in the bare HF layout (shared.weight,
     encoder.block.N...) for the --t5 option."""
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     from mlimgsynth_tpu.models import t5 as t5_mod
     P = t5_mod.T5Params(d_model=32, d_kv=8, n_head=4, d_ff=36, n_layer=2,
                         n_vocab=64)
@@ -550,7 +550,7 @@ def write_tiny_flux_files(dirpath, P=None, seed=0, return_arrays=False):
     ``return_arrays`` also the {internal_name: ckpt-layout array} dict
     (for torch-transcription oracles)."""
     import os
-    from safetensors.numpy import save_file
+    from mlimgsynth_tpu.io.tensorstore import save_arrays as save_file
     from mlimgsynth_tpu.models import flux as flux_mod
     P = P or TINY_FLUX_SCHNELL
     rng = np.random.default_rng(seed)
@@ -597,4 +597,143 @@ def write_tiny_flux_files(dirpath, P=None, seed=0, return_arrays=False):
         paths[key] = p
     if return_arrays:
         return paths, internal
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Synthetic checkpoints at any width (full-size models for on-card smoke runs)
+# ---------------------------------------------------------------------------
+
+def synthetic_init(rng, name: str, ps):
+    """Seeded random array for one param, in checkpoint (torch) layout.
+
+    Matrices and convs draw N(0, 1/fan_in) so activations keep their scale
+    through a full-depth stack; norm scales are 1 + small noise, biases and
+    embeddings small noise.  float32."""
+    shape = ps.shape
+    if ps.kind == B.LINEAR_W:
+        shape = (shape[1], shape[0])
+        std = 1.0 / np.sqrt(shape[1])
+    elif ps.kind == B.CONV_W:
+        kh, kw, ci, co = shape
+        shape = (co, ci, kh, kw)
+        std = 1.0 / np.sqrt(ci * kh * kw)
+    else:
+        std = 0.02
+    a = rng.standard_normal(shape, dtype=np.float32)
+    a *= np.float32(std)
+    if ps.kind == B.VEC and not name.endswith(".bias"):
+        a += np.float32(1.0)
+    return a
+
+
+def model_specs(mt):
+    """{component: param spec} of a model type, traced as the session
+    traces them (clip towers with the feature head where the family has
+    one, the denoiser, the VAE)."""
+    from mlimgsynth_tpu.models import flux as flux_mod
+    from mlimgsynth_tpu.models import mmdit as mmdit_mod
+    P = mt.unet_p
+    flux = getattr(P, "flux", False)
+    flow = getattr(P, "flow", False)
+    idx = jnp.zeros((1,), jnp.int32)
+    out = {}
+    out["clip"] = B.trace_spec(
+        lambda ctx, toks: clip_mod.clip_text_apply(
+            ctx, toks, mt.clip_p, feat_tok_idx=idx if (flux or flow) else None,
+            feat_proj=not flux),
+        jnp.zeros((1, mt.clip_p.n_token), jnp.int32))
+    if mt.clip2_p is not None:
+        out["clip2"] = B.trace_spec(
+            lambda ctx, toks: clip_mod.clip_text_apply(
+                ctx, toks, mt.clip2_p, feat_tok_idx=idx, pre="clip2"),
+            jnp.zeros((1, mt.clip2_p.n_token), jnp.int32))
+    if flux:
+        out["unet"] = B.trace_spec(
+            lambda ctx, x, t, c, y: flux_mod.flux_apply(
+                ctx, x, t, c, y, P,
+                guidance=(jnp.zeros((1,)) if P.guidance_embed else None)),
+            jnp.zeros((1, 8, 8, P.n_ch_in // 4)), jnp.zeros((1,)),
+            jnp.zeros((1, 7, P.d_ctx_in)), jnp.zeros((1, P.d_pooled)))
+    elif flow:
+        out["unet"] = B.trace_spec(
+            lambda ctx, x, t, c, y: mmdit_mod.mmdit_apply(ctx, x, t, c, y, P),
+            jnp.zeros((1, 8, 8, P.n_ch_in)), jnp.zeros((1,)),
+            jnp.zeros((1, 10, P.d_ctx_in)), jnp.zeros((1, P.d_pooled)))
+    else:
+        label = jnp.zeros((1, P.ch_adm_in)) if P.ch_adm_in else None
+        out["unet"] = B.trace_spec(
+            lambda ctx, x, t, c: unet_mod.unet_apply(ctx, x, t, c, label, P),
+            jnp.zeros((1, 8, 8, P.n_ch_in)), jnp.zeros((1,)),
+            jnp.zeros((1, 77, P.n_ctx)))
+    V = mt.vae_p
+    out["vae"] = B.trace_spec(
+        lambda ctx, x: vae_mod.vae_encode_apply(ctx, x, V),
+        jnp.zeros((1, 64, 64, 3)))
+    out["vae"].update(B.trace_spec(
+        lambda ctx, x: vae_mod.vae_decode_apply(ctx, x, V),
+        jnp.zeros((1, 8, 8, V.ch_z))))
+    return out
+
+
+def _synthetic_ckpt_name(family: str, comp: str, name: str):
+    """Internal name -> (file, checkpoint name, transpose) in the layout
+    the family's published files use: one CompVis/SGM file for sd1/sdxl
+    (SDXL's bigG tower in OpenCLIP layout, fused by the caller), the sd3
+    single file, and Flux's separate model/clip/vae files."""
+    if family == "flux_schnell" or family == "flux_dev":
+        if comp == "unet":
+            return "model", name[len("flux."):], False
+        if comp == "clip":
+            return "clip", _hf_clip_name(name), False
+        return ("vae", nameconv.internal_to_compvis(name)[
+            len("first_stage_model."):], False)
+    if family.startswith("sd3"):
+        ck = _sd3_ckpt_name(name)
+        if isinstance(ck, tuple):
+            return "model", ck[1], True
+        return "model", ck, False
+    if comp == "clip2":
+        return "model", openclip_name(name), False
+    return "model", nameconv.internal_to_compvis(name), False
+
+
+def write_synthetic_model(dirpath, family: str, mt, seed: int = 0,
+                          dtype=np.float16):
+    """Write a seeded random checkpoint of model type ``mt`` (any width, up
+    to the published ones) in ``family``'s file layout with the repo's own
+    safetensors writer.  Returns {session option: path} ("model", plus
+    "clip" and "vae" for Flux's separate files)."""
+    import os
+    import re
+    from mlimgsynth_tpu.io.tensorstore import save_arrays
+    rng = np.random.default_rng(seed)
+    files = {}
+    for comp, spec in model_specs(mt).items():
+        fused = {}
+        for name in sorted(spec):
+            arr = synthetic_init(rng, name, spec[name])
+            m = re.match(r"(.*\.attn)\.(q_proj|k_proj|v_proj)\.(weight|bias)$",
+                         name) if comp == "clip2" and not \
+                family.startswith("sd3") else None
+            if m:       # OpenCLIP stores q/k/v fused as in_proj
+                fused.setdefault((m.group(1), m.group(3)), {})[
+                    m.group(2)] = arr
+                continue
+            f, ck, tr = _synthetic_ckpt_name(family, comp, name)
+            assert ck is not None, f"no checkpoint name for {name}"
+            files.setdefault(f, {})[ck] = np.ascontiguousarray(
+                arr.T if tr else arr).astype(dtype)
+        for (stem, kind), parts in fused.items():
+            base = openclip_name(stem + ".out_proj.weight")[
+                :-len("out_proj.weight")]
+            files["model"][base + ("in_proj_weight" if kind == "weight"
+                                   else "in_proj_bias")] = np.concatenate(
+                [parts["q_proj"], parts["k_proj"], parts["v_proj"]],
+                axis=0).astype(dtype)
+    paths = {}
+    for f, arrays in files.items():
+        p = os.path.join(str(dirpath), f"synthetic-{family}-{f}.safetensors")
+        save_arrays(arrays, p)
+        paths[f] = p
     return paths

@@ -13,9 +13,9 @@ files are byte-compatible.
 """
 from __future__ import annotations
 
-import io
 import os
 import struct
+import zlib
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -35,25 +35,97 @@ def tensor_to_image_arr(t: np.ndarray, idx: int = 0) -> np.ndarray:
     return x.transpose(1, 2, 0)
 
 
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def png_encode(img: np.ndarray, infotext: Optional[str] = None) -> bytes:
+    """uint8 [h,w,c] (c in 1, 3, 4) -> PNG bytes, with the standard library
+    only (zlib, struct).  ``infotext`` goes into the A1111 ``parameters``
+    chunk: tEXt when it is Latin-1, else an uncompressed UTF-8 iTXt (as
+    Pillow's ``PngInfo.add_text`` writes it)."""
+    img = np.asarray(img, np.uint8)
+    if img.ndim == 2:
+        img = img[:, :, None]
+    h, w, c = img.shape
+    color_type = {1: 0, 3: 2, 4: 6}[c]
+    # every scanline gets filter byte 0 (none)
+    raw = np.zeros((h, 1 + w * c), np.uint8)
+    raw[:, 1:] = img.reshape(h, w * c)
+    out = [_PNG_SIG,
+           _png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type,
+                                           0, 0, 0))]
+    if infotext:
+        try:
+            out.append(_png_chunk(
+                b"tEXt", b"parameters\0" + infotext.encode("latin-1")))
+        except UnicodeEncodeError:
+            # keyword, no compression, no language tag or translated key
+            out.append(_png_chunk(
+                b"iTXt", b"parameters\0\0\0\0\0" + infotext.encode("utf-8")))
+    out.append(_png_chunk(b"IDAT", zlib.compress(raw.tobytes(), 6)))
+    out.append(_png_chunk(b"IEND", b""))
+    return b"".join(out)
+
+
+def _png_text(tag: bytes, body: bytes) -> Optional[Tuple[str, str]]:
+    """(key, text) of one tEXt, zTXt or iTXt chunk body; None for other
+    chunks and malformed ones."""
+    if b"\0" not in body:
+        return None
+    key, rest = body.split(b"\0", 1)
+    key = key.decode("latin-1")
+    if tag == b"tEXt":
+        return key, rest.decode("latin-1")
+    if tag == b"zTXt" and rest[:1] == b"\0":          # method 0: zlib
+        return key, zlib.decompress(rest[1:]).decode("latin-1")
+    if tag == b"iTXt" and len(rest) >= 2 and rest.count(b"\0", 2) >= 2:
+        compressed = rest[0] == 1
+        # skip the language tag and the translated keyword
+        text = rest[2:].split(b"\0", 2)[2]
+        if compressed:
+            text = zlib.decompress(text)
+        return key, text.decode("utf-8")
+    return None
+
+
+def png_text_chunks(data: bytes) -> Dict[str, str]:
+    """All tEXt, zTXt and iTXt key/value pairs of a PNG byte string."""
+    if data[:8] != _PNG_SIG:
+        raise ValueError("not a PNG file")
+    out: Dict[str, str] = {}
+    pos = 8
+    while pos + 8 <= len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        if tag == b"IEND":
+            break
+        kv = _png_text(tag, data[pos + 8:pos + 8 + n])
+        if kv is not None:
+            out[kv[0]] = kv[1]
+        pos += 12 + n
+    return out
+
+
 def image_save(path: str, img: np.ndarray, infotext: Optional[str] = None
                ) -> None:
     """Save uint8 [h,w,c]; PNG embeds infotext as the A1111 'parameters'
-    tEXt key."""
+    text key.  PNG is written with the standard library; other formats
+    need Pillow."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".png":
+        with open(path, "wb") as f:
+            f.write(png_encode(img, infotext))
+        return
     from PIL import Image
-    from PIL.PngImagePlugin import PngInfo
     if img.shape[2] == 1:
         img = img[:, :, 0]
     im = Image.fromarray(img)
-    ext = os.path.splitext(path)[1].lower()
-    if ext == ".png":
-        info = PngInfo()
-        if infotext:
-            info.add_text("parameters", infotext)
-        im.save(path, pnginfo=info)
-    elif ext in (".jpg", ".jpeg"):
+    if ext in (".jpg", ".jpeg"):
         im.save(path, quality=95)
-    elif ext in (".ppm", ".pnm", ".pgm"):
-        im.save(path)
     else:
         im.save(path)
 
@@ -115,10 +187,9 @@ def image_alpha_split(t: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 
 def png_read_parameters(path: str) -> Optional[str]:
-    """Read back the A1111 'parameters' tEXt metadata from a PNG."""
-    from PIL import Image
-    im = Image.open(path)
-    return im.info.get("parameters")
+    """Read back the A1111 'parameters' text metadata from a PNG."""
+    with open(path, "rb") as f:
+        return png_text_chunks(f.read()).get("parameters")
 
 
 def tensor_img_redblue(t2d: np.ndarray) -> np.ndarray:

@@ -1,7 +1,7 @@
 """Checkpoint -> model parameter loading.
 
 Bridges the tensorstore (raw checkpoint names, torch layouts) to the model
-param dicts (internal names, TPU layouts):
+param dicts (internal names, device layouts):
 
 * name normalization + OpenCLIP fused-qkv splitting
   (reference: tensor_callback_main + open_clip_attn_conv,
@@ -177,9 +177,9 @@ def load_params(store: TensorStore, spec: Dict[str, ParamSpec],
 def pack_to_device(host_params: Dict[str, np.ndarray]) -> Dict[str, object]:
     """Upload a param dict in a handful of large transfers.
 
-    Per-array uploads cost one dispatch each; on remote-attached TPU
-    (and generally) a single large transfer per dtype followed by one jitted
-    on-device unpack is far faster.  Returns a dict of device arrays.
+    Per-array uploads cost one dispatch each; a single large transfer per
+    dtype followed by one jitted on-device unpack is faster.  Returns a
+    dict of device arrays.
     """
     import jax
     import jax.numpy as jnp
@@ -298,29 +298,19 @@ def lora_apply(model_store: TensorStore, model_map: Dict[str, NameRef],
 
 def quantize_linear_weights(host_params: Dict[str, np.ndarray],
                             spec: Dict[str, ParamSpec],
-                            bits: int = 8,
-                            percol_m_hint: int | None = None) -> int:
+                            bits: int = 8) -> int:
     """Replace eligible linear weights with int8 (``bits=8``) or packed
     int4 (``bits=4``) + scale pairs in place (weight-only quantized
     execution; see ops/q8_matmul.py and ops/q4_matmul.py).  Returns the
-    number of weights quantized.
-
-    ``percol_m_hint`` (DiT large-M families only): token-count estimate
-    for the int8-MXU candidacy decision — shapes where the cost model
-    prefers the int8 ws kernel store PER-COLUMN scales ([N] f32) instead
-    of per-block ([K/128, N]), unless the incremental re-quantization
-    noise exceeds the guard (queue-38 A/B: ws-int8 wins 5/7 DiT shapes
-    by 10-23%)."""
+    number of weights quantized."""
     from .models.blocks import LINEAR_W
-    from .ops import q8_matmul as q8m
     from .ops.q8_matmul import KBLOCK, quantize_weight
     from .ops.q4_matmul import quantize_weight_q4
     n = 0
-    groups: Dict[tuple, list] = {}   # (K, N) -> [(name, ratio), ...]
     for name, ps in list(spec.items()):
         if ps.kind != LINEAR_W or name not in host_params:
             continue
-        k, n_out = ps.shape
+        k, _ = ps.shape
         if k % KBLOCK != 0:
             continue  # stays in the compute dtype
         w = np.asarray(host_params[name], np.float32)
@@ -329,31 +319,8 @@ def quantize_linear_weights(host_params: Dict[str, np.ndarray],
             host_params[name + "_q4"] = q
         else:
             q, scale = quantize_weight(w)
-            if (percol_m_hint is not None
-                    and q8m.percol_eligible(k, n_out, percol_m_hint)):
-                _, _, ratio = q8m.percol_from_blocks(q, scale)
-                groups.setdefault((k, n_out), []).append((name, ratio))
             host_params[name + "_q8"] = q
         del host_params[name]
         host_params[name + "_scale"] = scale
         n += 1
-    # Per-(K, N) ALL-OR-NONE conversion: one outlier-heavy weight keeps
-    # the whole shape group per-block, so every same-shaped linear shares
-    # one scale format — uniform kernels per shape, and --pp block
-    # stacking (api._stack_pipeline_blocks) never sees mixed [N] vs
-    # [K/128, N] scale shapes across joint blocks.
-    n_percol = 0
-    for (k, n_out), members in groups.items():
-        if max(r for _, r in members) > q8m.PERCOL_MAX_SCALE_RATIO:
-            continue
-        for name, _ in members:
-            qc, sc, _ = q8m.percol_from_blocks(
-                host_params[name + "_q8"], host_params[name + "_scale"])
-            host_params[name + "_q8"] = qc
-            host_params[name + "_scale"] = sc
-            n_percol += 1
-    if n_percol:
-        from .utils.log import g_logger as log
-        log.info2(f"{n_percol}/{n} quantized linears stored per-column "
-                  "(int8-MXU ws candidates)")
     return n

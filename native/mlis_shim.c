@@ -1,7 +1,7 @@
 /* libmlimgsynth C ABI shim.
  *
  * Implements the stable mlis_* interface (include/mlimgsynth.h) over the
- * TPU-native Python core by embedding CPython and driving
+ * JAX Python core by embedding CPython and driving
  * mlimgsynth_tpu.capi.  Mirrors the reference library's external behavior
  * (reference: src/mlimgsynth.c public entry points) so existing C clients
  * and the ctypes binding run unchanged.

@@ -4,7 +4,7 @@ Drop-in replacement for the reference's ctypes wrapper
 (reference: python/mlimgsynth.py): same class name, constants, and method
 signatures (``option_set`` joining args with ','; ``image_get`` returning an
 object with ``.d/.w/.h/.c``; ``clip_text_encode(features=, no_norm=,
-model_idx=)``; tensor ``.similarity``), backed by the TPU-native core instead
+model_idx=)``; tensor ``.similarity``), backed by the JAX core instead
 of ``libmlimgsynth.so``.
 """
 import os
@@ -19,7 +19,7 @@ from mlimgsynth_tpu import api as _api  # noqa: E402
 
 # Constants (include/mlimgsynth.h)
 MLIS_VERSION = 0x000500
-MLIS_VERSION_STR = "0.5.0-tpu"
+MLIS_VERSION_STR = "0.5.0"
 
 MLIS_E_UNKNOWN = -1
 MLIS_E_VERSION = -2
@@ -203,4 +203,4 @@ if __name__ == "__main__":
     mlis = MLImgSynth()
     mlis.option_set(MLIS_OPT_IMAGE_DIM, 512, 512)
     mlis.option_set("cfg-scale", 7.0)
-    print("MLImgSynth TPU binding OK")
+    print("MLImgSynth binding OK")

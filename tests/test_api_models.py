@@ -346,6 +346,24 @@ def test_model_type_user_override(tmp_path, monkeypatch):
     assert s.c["model_type"] == "sdxl"
 
 
+def test_model_type_definition_option(tmp_path):
+    """The model-type option also takes a ModelTypeDef, used as given: a
+    session on a custom (here tiny) sd1 type generates with the built-in
+    type table untouched."""
+    ckpt = tmp_path / "sd1.safetensors"
+    write_tiny_checkpoint(ckpt)
+    s = MLImgSynth()
+    s.option_set("model", str(ckpt))
+    s.option_set("model-type", TINY_MODEL_TYPE)
+    s.option_set("image-dim", 64)
+    s.option_set("steps", 1)
+    s.option_set("prompt", "a test")
+    assert s.c["model_type"] == "sd1" and s._mt is TINY_MODEL_TYPE
+    img = s.generate()
+    assert img.shape == (1, 3, 64, 64) and np.isfinite(img).all()
+    assert s._mt is TINY_MODEL_TYPE
+
+
 def test_sdxl_generate_batch_matches_singles(tmp_path, monkeypatch):
     """generate_batch on an SDXL-type model (dual-encoder fused encode with
     per-request prompts, feature head, size labels, uncond zeroing) must

@@ -1,9 +1,9 @@
 """CPU smoke of the bench harness wiring for the newest config.
 
-The real benches run on TPU at full model size (tools/tpu_queue*.sh); this
-catches shape/spec bugs in the bench-side plumbing (fused encode spec,
-latent channels, flow plan) before a TPU session is spent on them, by
-monkeypatching the model tables to tiny geometries."""
+The real benches run on the GPU at full model size; this catches shape/spec
+bugs in the bench-side plumbing (fused encode spec, latent channels, flow
+plan) before chip time is spent on them, by monkeypatching the model tables
+to tiny geometries."""
 import dataclasses
 
 import numpy as np

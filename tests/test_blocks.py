@@ -139,13 +139,17 @@ def test_activations_vs_torch():
                                atol=1e-6)
 
 
+def _bshd(x):
+    """torch's [B, H, S, D] <-> attention_xla's [B, S, H, D]."""
+    return jnp.asarray(x).transpose(0, 2, 1, 3)
+
+
 def test_attention_vs_torch():
     from mlimgsynth_tpu.ops.attention import attention_xla
     q = rand(2, 4, 9, 16)
     k = rand(2, 4, 7, 16, seed=1)
     v = rand(2, 4, 7, 16, seed=2)
-    got = np.asarray(attention_xla(jnp.asarray(q), jnp.asarray(k),
-                                   jnp.asarray(v)))
+    got = np.asarray(_bshd(attention_xla(_bshd(q), _bshd(k), _bshd(v))))
     ref = F.scaled_dot_product_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v)).numpy()
     np.testing.assert_allclose(got, ref, atol=1e-5)
@@ -156,8 +160,8 @@ def test_attention_causal_vs_torch():
     q = rand(1, 2, 8, 8)
     k = rand(1, 2, 8, 8, seed=1)
     v = rand(1, 2, 8, 8, seed=2)
-    got = np.asarray(attention_xla(jnp.asarray(q), jnp.asarray(k),
-                                   jnp.asarray(v), causal=True))
+    got = np.asarray(_bshd(attention_xla(_bshd(q), _bshd(k), _bshd(v),
+                                         causal=True)))
     ref = F.scaled_dot_product_attention(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
         is_causal=True).numpy()
@@ -205,46 +209,3 @@ def test_spec_trace():
     assert spec["b.weight"].shape == (1, 1, 8, 4)
     assert spec["b.weight"].kind == B.CONV_W
     assert spec["a.bias"].kind == B.VEC
-
-
-def test_attn_mhead_transposed_path_matches(monkeypatch):
-    """The MLIS_FLASH_T wiring in attn_mhead (vT projection einsum +
-    transposed kernel + transposed out-projection einsum) must produce the
-    same result as the standard einsum path.  Pallas runs interpreted on
-    CPU (pallas_call patched to interpret=True)."""
-    import jax
-    from jax.experimental import pallas as pl
-
-    from mlimgsynth_tpu.ops import flash_attention as fa
-
-    if jax.default_backend() != "tpu":
-        orig = pl.pallas_call
-
-        def interp(*a, **kw):
-            kw["interpret"] = True
-            kw.pop("compiler_params", None)
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(fa.pl, "pallas_call", interp)
-
-    d_model, n_head, s = 80, 2, 512
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal((2, s, d_model)).astype(np.float32)
-                    * 0.3)
-    spec = B.trace_spec(
-        lambda ctx, x: B.attn_mhead(ctx, "blk.attn1", x, x, x,
-                                    d_model, d_model, n_head), x)
-    params = {k: jnp.asarray(
-        rng.standard_normal(ps.shape).astype(np.float32) * 0.05)
-        for k, ps in spec.items()}
-
-    monkeypatch.setenv("MLIS_FLASH_T", "0")
-    base = B.attn_mhead(B.Ctx(params), "blk.attn1", x, x, x,
-                        d_model, d_model, n_head)
-
-    monkeypatch.setenv("MLIS_FLASH_T", "1")
-    monkeypatch.setenv("MLIS_FLASH_ATTENTION", "1")
-    out = B.attn_mhead(B.Ctx(params), "blk.attn1", x, x, x,
-                       d_model, d_model, n_head)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(base),
-                               atol=2e-3, rtol=2e-3)

@@ -185,56 +185,6 @@ def test_tp_option_needs_devices(monkeypatch):
         s._backend_init()
 
 
-def test_mesh_shard_map_flash(monkeypatch):
-    """Under an active mesh, attention() runs the flash kernel inside a
-    shard_map over (dp, tp): batch over dp, heads over tp.  Must match the
-    unsharded XLA reference.  Pallas runs in interpret mode on CPU
-    (force_tpu_interpret_mode deadlocks under shard_map, so pallas_call is
-    patched to interpret=True instead)."""
-    from jax.experimental import pallas as pl
-
-    from mlimgsynth_tpu.ops import attention as am
-    from mlimgsynth_tpu.ops import flash_attention as fa
-
-    if jax.default_backend() != "tpu":
-        orig = pl.pallas_call
-
-        def interp(*a, **kw):
-            kw["interpret"] = True
-            kw.pop("compiler_params", None)
-            return orig(*a, **kw)
-
-        monkeypatch.setattr(fa.pl, "pallas_call", interp)
-    monkeypatch.setenv("MLIS_FLASH_ATTENTION", "1")   # force flash on CPU
-    mesh = pmesh.make_mesh(8, tp=4)
-    monkeypatch.setattr(am, "MESH", mesh)
-
-    def rand(*shape, seed=0):
-        return jnp.asarray(np.random.default_rng(seed)
-                           .standard_normal(shape).astype(np.float32))
-
-    from mlimgsynth_tpu.ops.attention import attention_xla
-    q = rand(2, 8, 512, 40, seed=1) * 0.5
-    k = rand(2, 8, 512, 40, seed=2) * 0.5
-    v = rand(2, 8, 512, 40, seed=3)
-    out = am.attention(q, k, v)
-    ref = attention_xla(q, k, v)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref),
-                               atol=2e-3, rtol=2e-3)
-    # transposed variant through the same mesh path
-    out_t = am.attention_t(q, k, v.swapaxes(-1, -2))
-    np.testing.assert_allclose(np.asarray(out_t.swapaxes(-1, -2)),
-                               np.asarray(ref), atol=2e-3, rtol=2e-3)
-    # non-dividing head count falls back to XLA (and still matches)
-    q3 = rand(2, 3, 512, 40, seed=4) * 0.5
-    k3 = rand(2, 3, 512, 40, seed=5) * 0.5
-    v3 = rand(2, 3, 512, 40, seed=6)
-    out3 = am.attention(q3, k3, v3)
-    np.testing.assert_allclose(np.asarray(out3),
-                               np.asarray(attention_xla(q3, k3, v3)),
-                               atol=2e-3, rtol=2e-3)
-
-
 def test_generate_flux_tp_dp_matches_single(tmp_path, monkeypatch):
     """Flux (double/single-stream DiT) under --tp/--dp: the new TP rules
     (img_attn/txt_attn qkv+proj, img_mlp/txt_mlp, single-block
@@ -274,8 +224,7 @@ def test_generate_flux_tp_dp_matches_single(tmp_path, monkeypatch):
     np.testing.assert_allclose(img, base, atol=1.5 / 255)
 
     # sp option plumbing on flux: the tiny joint sequence (93 tokens) does
-    # NOT divide sp=2, so this exercises the silent GSPMD fallback the real
-    # S=4352 shape would skip (ring math itself is covered above)
+    # NOT divide sp=2, so this exercises the ring's token padding
     s_sp = make(1, 1)
     s_sp.option_set("sp", 2)
     s_sp.option_set("dp", 2)
@@ -318,9 +267,10 @@ def test_t5_block_sharded_matches_single():
 # ---------------------------------------------------------------------------
 
 def _rand_qkv(rng, b, h, sq, sk, d, dtype=np.float32):
-    q = jnp.asarray(rng.standard_normal((b, h, sq, d)).astype(dtype))
-    k = jnp.asarray(rng.standard_normal((b, h, sk, d)).astype(dtype))
-    v = jnp.asarray(rng.standard_normal((b, h, sk, d)).astype(dtype))
+    """[B, S, H, D] q/k/v (the layout attention() takes)."""
+    q = jnp.asarray(rng.standard_normal((b, sq, h, d)).astype(dtype))
+    k = jnp.asarray(rng.standard_normal((b, sk, h, d)).astype(dtype))
+    v = jnp.asarray(rng.standard_normal((b, sk, h, d)).astype(dtype))
     return q, k, v
 
 
@@ -345,11 +295,29 @@ def test_ring_attention_matches_dense():
         lambda q, k, v: ring.ring_attention(q, k, v, mesh2))(q, k, v))
     np.testing.assert_allclose(out, ref, atol=2e-6)
 
-    # transposed-v ring on the same mixed mesh
-    out_t = np.asarray(jax.jit(
-        lambda q, k, vt: ring.ring_attention_t(q, k, vt, mesh2))(
-            q, k, v.swapaxes(-1, -2)))
-    np.testing.assert_allclose(out_t.swapaxes(-1, -2), ref, atol=2e-6)
+
+@pytest.mark.parametrize("sp,n_tok", [(4, 34), (8, 50), (4, 170),
+                                      (2, 33)])
+def test_ring_attention_pads_nondividing_tokens(sp, n_tok):
+    """Token counts that don't divide sp (SD3 1024px: 4096 + 154 = 4250 on
+    sp=4) are zero-padded and the padded keys masked: self and cross
+    attention still match the dense reference."""
+    from mlimgsynth_tpu.ops.attention import attention_xla
+    from mlimgsynth_tpu.parallel import ring_attention as ring
+
+    rng = np.random.default_rng(sp * 100 + n_tok)
+    mesh = pmesh.make_mesh(8, tp=1, sp=sp)          # dp = 8 / sp
+    b = 8 // sp
+    q, k, v = _rand_qkv(rng, b, 2, n_tok, n_tok, 8)
+    out = np.asarray(jax.jit(
+        lambda q, k, v: ring.ring_attention(q, k, v, mesh))(q, k, v))
+    np.testing.assert_allclose(out, np.asarray(attention_xla(q, k, v)),
+                               atol=2e-6)
+    q, k, v = _rand_qkv(rng, b, 2, n_tok, 7, 8)
+    out = np.asarray(jax.jit(
+        lambda q, k, v: ring.sp_cross_attention(q, k, v, mesh))(q, k, v))
+    np.testing.assert_allclose(out, np.asarray(attention_xla(q, k, v)),
+                               atol=2e-6)
 
 
 def test_ring_attention_bf16():
@@ -360,9 +328,9 @@ def test_ring_attention_bf16():
 
     rng = np.random.default_rng(6)
     mesh = pmesh.make_mesh(8, tp=1, sp=4)  # dp=2 x sp=4
-    q = jnp.asarray(rng.standard_normal((2, 2, 32, 8)), jnp.bfloat16)
-    k = jnp.asarray(rng.standard_normal((2, 2, 32, 8)), jnp.bfloat16)
-    v = jnp.asarray(rng.standard_normal((2, 2, 32, 8)), jnp.bfloat16)
+    q = jnp.asarray(rng.standard_normal((2, 32, 2, 8)), jnp.bfloat16)
+    k = jnp.asarray(rng.standard_normal((2, 32, 2, 8)), jnp.bfloat16)
+    v = jnp.asarray(rng.standard_normal((2, 32, 2, 8)), jnp.bfloat16)
     ref = np.asarray(attention_xla(q, k, v).astype(jnp.float32))
     out = np.asarray(ring.ring_attention(q, k, v, mesh).astype(jnp.float32))
     np.testing.assert_allclose(out, ref, atol=2e-2)
@@ -380,12 +348,6 @@ def test_sp_cross_attention_matches_dense():
         lambda q, k, v: ring.sp_cross_attention(q, k, v, mesh))(q, k, v))
     np.testing.assert_allclose(out, ref, atol=2e-6)
 
-    # transposed-v twin: vt [B,H,D,Sk] -> [B,H,D,Sq]
-    out_t = np.asarray(jax.jit(
-        lambda q, k, vt: ring.sp_cross_attention_t(q, k, vt, mesh))(
-            q, k, v.swapaxes(-1, -2)))
-    np.testing.assert_allclose(out_t.swapaxes(-1, -2), ref, atol=2e-6)
-
 
 def test_attention_dispatch_sp(monkeypatch):
     """attention() routes through the ring when the session mesh has sp>1,
@@ -396,10 +358,9 @@ def test_attention_dispatch_sp(monkeypatch):
     rng = np.random.default_rng(8)
     mesh = pmesh.make_mesh(8, tp=1, sp=8)
     monkeypatch.setattr(attn_mod, "MESH", mesh)
-    calls = {"ring": 0, "cross": 0, "ring_t": 0}
+    calls = {"ring": 0, "cross": 0}
     real_ring = ring.ring_attention
     real_cross = ring.sp_cross_attention
-    real_ring_t = ring.ring_attention_t
     monkeypatch.setattr(
         ring, "ring_attention",
         lambda *a, **kw: (calls.__setitem__("ring", calls["ring"] + 1),
@@ -408,10 +369,6 @@ def test_attention_dispatch_sp(monkeypatch):
         ring, "sp_cross_attention",
         lambda *a, **kw: (calls.__setitem__("cross", calls["cross"] + 1),
                           real_cross(*a, **kw))[1])
-    monkeypatch.setattr(
-        ring, "ring_attention_t",
-        lambda *a, **kw: (calls.__setitem__("ring_t", calls["ring_t"] + 1),
-                          real_ring_t(*a, **kw))[1])
 
     q, k, v = _rand_qkv(rng, 1, 2, 64, 64, 8)
     ref = np.asarray(attn_mod.attention_xla(q, k, v))
@@ -426,20 +383,21 @@ def test_attention_dispatch_sp(monkeypatch):
     np.testing.assert_allclose(out, ref, atol=2e-6)
     assert calls["cross"] == 1
 
-    # non-dividing token count (S=50 on sp=8): silent XLA fallback
+    # non-dividing token count (S=50 on sp=8): the ring pads and masks
     q, k, v = _rand_qkv(rng, 1, 2, 50, 50, 8)
     ref = np.asarray(attn_mod.attention_xla(q, k, v))
     out = np.asarray(attn_mod.attention(q, k, v))
     np.testing.assert_allclose(out, ref, atol=2e-6)
-    assert calls["ring"] == 1 and calls["cross"] == 1
+    assert calls["ring"] == 2 and calls["cross"] == 1
 
-    # transposed-v entry point rides the native transposed ring (no
-    # relayouts in or out)
-    q, k, v = _rand_qkv(rng, 1, 2, 64, 64, 8)
+    # heads that don't divide tp: visible GSPMD fallback, no ring
+    mesh_tp = pmesh.make_mesh(8, tp=2, sp=4)
+    monkeypatch.setattr(attn_mod, "MESH", mesh_tp)
+    q, k, v = _rand_qkv(rng, 1, 3, 64, 64, 8)
     ref = np.asarray(attn_mod.attention_xla(q, k, v))
-    out = np.asarray(attn_mod.attention_t(q, k, v.swapaxes(-1, -2)))
-    np.testing.assert_allclose(out.swapaxes(-1, -2), ref, atol=2e-6)
-    assert calls["ring_t"] == 1 and calls["ring"] == 1
+    out = np.asarray(attn_mod.attention(q, k, v))
+    np.testing.assert_allclose(out, ref, atol=2e-6)
+    assert calls["ring"] == 2
 
 
 def test_generate_sd3_sp_matches_single(tmp_path, monkeypatch):

@@ -1,4 +1,4 @@
-"""A1111 prompt editing on the TPU pipeline: per-step conditioning bank
+"""A1111 prompt editing on the fused pipeline: per-step conditioning bank
 gathered inside the fused scan."""
 import numpy as np
 import pytest

@@ -1,23 +1,29 @@
-"""Weight-only int8 matmul: kernel vs dequant reference, quant accuracy,
-and quantized end-to-end generation."""
-import jax
+"""Weight-only int8 matmul: quantization accuracy, q8_dot against a numpy
+dequantise-then-matmul reference, and quantized end-to-end generation."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from mlimgsynth_tpu.ops import q8_matmul as q8
 
+# (M, K, N): odd M (77 text tokens, 130), K a prime multiple of 128 (2432 =
+# 19 x 128, sd35-large's width), K >> N and N >> K, N not a power of two
+SHAPES = [(64, 256, 512), (77, 128, 512), (130, 384, 1024), (64, 2432, 128),
+          (130, 2432, 512), (64, 1024, 1024), (77, 2432, 128),
+          (100, 256, 384), (70, 384, 392), (77, 1024, 128),
+          (200, 1024, 384), (2304, 512, 384)]
 
-@pytest.fixture(autouse=True)
-def interpret_mode():
-    if jax.default_backend() != "tpu":
-        from jax.experimental.pallas import tpu as pltpu
-        ctx = pltpu.force_tpu_interpret_mode()
-        ctx.__enter__()
-        yield
-        ctx.__exit__(None, None, None)
-    else:
-        yield
+# f32: both sides accumulate K products of O(1) terms in float32 / float64.
+# bf16: x is already bf16; the dequantised weight and the output each round
+# to bf16 (2^-9 relative), so the bound is a small multiple of that.
+TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+
+
+def np_dequant(q, s):
+    """numpy reference: int8 [K, N] x per-(128-row block, column) scale."""
+    k, n = q.shape
+    return (q.astype(np.float64).reshape(k // 128, 128, n)
+            * np.asarray(s, np.float64)[:, None, :]).reshape(k, n)
 
 
 def test_quantize_roundtrip_error():
@@ -31,18 +37,19 @@ def test_quantize_roundtrip_error():
     assert rel < 0.01  # int8 per-block quantization error
 
 
-@pytest.mark.parametrize("m,k,n", [(64, 256, 512), (77, 128, 512),
-                                   (130, 384, 1024),
-                                   (64, 2432, 128)])
-def test_kernel_matches_dequant(m, k, n):
-    rng = np.random.default_rng(1)
-    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32) * 0.3)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_q8_dot_matches_numpy_dequant(m, k, n, dtype):
+    rng = np.random.default_rng(m * 7 + k + n)
+    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32) * 0.3,
+                    dtype)
     w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
     q, s = q8.quantize_weight(w)
-    qd, sd = jnp.asarray(q), jnp.asarray(s)
-    ref = np.asarray(q8.q8_matmul_xla(x, qd, sd))
-    out = np.asarray(q8.q8_matmul(x, qd, sd, block_m=64, block_n=256))
-    np.testing.assert_allclose(out, ref, atol=5e-3, rtol=5e-3)
+    out = q8.q8_dot(x, jnp.asarray(q), jnp.asarray(s))
+    assert out.shape == (m, n) and out.dtype == x.dtype
+    ref = np.asarray(x, np.float64) @ np_dequant(q, s)
+    err = np.abs(np.asarray(out, np.float64) - ref).max()
+    assert err <= TOL[dtype] * np.abs(ref).max(), err
 
 
 def test_batched_input_shape():
@@ -50,9 +57,12 @@ def test_batched_input_shape():
     x = jnp.asarray(rng.standard_normal((2, 16, 256)).astype(np.float32))
     w = rng.standard_normal((256, 512)).astype(np.float32)
     q, s = q8.quantize_weight(w)
-    out = q8.q8_matmul(x, jnp.asarray(q), jnp.asarray(s), block_m=32,
-                       block_n=256)
+    out = q8.q8_dot(x, jnp.asarray(q), jnp.asarray(s))
     assert out.shape == (2, 16, 512)
+    np.testing.assert_allclose(
+        np.asarray(out).reshape(32, 512),
+        np.asarray(x).reshape(32, 256) @ np_dequant(q, s), rtol=1e-4,
+        atol=1e-3)
 
 
 def test_q8_generation_close_to_fp(tmp_path, monkeypatch):
@@ -90,58 +100,9 @@ def test_q8_generation_close_to_fp(tmp_path, monkeypatch):
     assert 0 < diff < 0.5, diff
 
 
-@pytest.mark.parametrize("m,k,n", [(64, 256, 512), (77, 128, 512),
-                                   (130, 384, 1024),
-                                   (64, 2432, 128)])
-def test_int8_kernel_matches_xla_emulation(m, k, n):
-    """int8 x int8 Pallas kernel vs the XLA emulation of the same dynamic
-    activation quantization (exact int32 accumulation per block)."""
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32) * 0.3)
-    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    qd, sd = jnp.asarray(q), jnp.asarray(s)
-    ref = np.asarray(q8.q8_matmul_int8_xla(x, qd, sd))
-    out = np.asarray(q8.q8_matmul_int8(x, qd, sd, block_m=64, block_n=256))
-    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
-
-
-def test_int8_accuracy_vs_float():
-    """Dynamic activation quantization keeps the matmul within ~1% of the
-    float result (both weight and activation are int8)."""
-    rng = np.random.default_rng(4)
-    x = rng.standard_normal((64, 512)).astype(np.float32) * 0.3
-    w = rng.standard_normal((512, 512)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    ref = x @ w
-    out = np.asarray(q8.q8_matmul_int8_xla(
-        jnp.asarray(x), jnp.asarray(q), jnp.asarray(s)))
-    rel = np.abs(out - ref).max() / np.abs(ref).max()
-    assert rel < 0.02, rel
-
-
-def test_q8_dot_mode_dispatch(monkeypatch):
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.standard_normal((8, 256)).astype(np.float32))
-    w = rng.standard_normal((256, 128)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    qd, sd = jnp.asarray(q), jnp.asarray(s)
-    monkeypatch.setenv("MLIS_Q8_MODE", "int8")
-    a = np.asarray(q8.q8_dot(x, qd, sd))
-    monkeypatch.setenv("MLIS_Q8_MODE", "dq")
-    b = np.asarray(q8.q8_dot(x, qd, sd))
-    # both approximate the float matmul; int8 adds activation-quant error
-    ref = np.asarray(x) @ (np.asarray(q, np.float32).reshape(2, 128, 128)
-                           * np.asarray(s)[:, None, :]).reshape(256, 128)
-    assert np.abs(b - ref).max() < 1e-5
-    assert np.abs(a - ref).max() / np.abs(ref).max() < 0.02
-
-
 def test_attn_mixed_quantization():
     """Cross-attention where k/v projections are int8 (K divisible by 128)
-    but q/out are not: attn_mhead must fall back to the linear() path for
-    the whole block (regression: KeyError on TPU bench with q8 weights)."""
-    import jax.numpy as jnp
+    but q/out are not: each projection takes its own linear() route."""
     from mlimgsynth_tpu.models import blocks as B
     rng = np.random.default_rng(6)
     d_model, d_ctx, n_head = 64, 128, 4   # k/v K=128 quantizes; q K=64 not
@@ -169,320 +130,23 @@ def test_attn_mixed_quantization():
     np.testing.assert_allclose(np.asarray(out), np.asarray(ref), atol=0.05)
 
 
-def test_kernel_bf16_weight_rounding():
-    """Production dtype path: bf16 x -> the dequantized weight tile
-    rounds through bf16 (round-4 restructure).  The added noise must stay
-    well under the inherent int8 quantization error."""
-    rng = np.random.default_rng(5)
-    x = jnp.asarray(rng.standard_normal((130, 1536)).astype(np.float32)
-                    * 0.3, jnp.bfloat16)
-    w = rng.standard_normal((1536, 512)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    out = np.asarray(q8.q8_matmul(x, jnp.asarray(q), jnp.asarray(s)),
-                     np.float32)
-    ref = np.asarray(jnp.dot(np.asarray(x, np.float32), w))
-    rel = np.abs(out - ref).max() / np.abs(ref).max()
-    assert np.isfinite(out).all() and rel < 0.02, rel
-
-
-@pytest.mark.parametrize("m,k,n", [(64, 256, 512), (130, 2432, 512),
-                                   (64, 1024, 1024), (77, 2432, 128)])
-def test_ws_kernel_matches_dequant(m, k, n):
-    """Weight-stationary grid (n outer, m inner, full-K stripe resident)
-    must match the dequant reference bit-for-bit at the same dtype."""
-    rng = np.random.default_rng(7)
-    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32) * 0.3)
-    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    qd, sd = jnp.asarray(q), jnp.asarray(s)
-    ref = np.asarray(q8.q8_matmul_xla(x, qd, sd))
-    out = np.asarray(q8.q8_matmul_ws(x, qd, sd))
-    np.testing.assert_allclose(out, ref, atol=5e-3, rtol=5e-3)
-
-
-def test_ws_plan_geometry():
-    # sd35-large qkv: K=2432 (prime x 128) fits at bn 512
-    assert q8._plan_ws(8500, 2432, 9728, 2, 2) is not None
-    # flux mlp down: K=12288 falls back to a narrower stripe
-    plan = q8._plan_ws(4608, 12288, 3072, 2, 2)
-    assert plan is not None and plan[1] <= 256
-    # K not a 128 multiple: no plan
-    assert q8._plan_ws(8500, 100, 512, 2, 2) is None
-    # odd-x128 N dims (sd35-large 2432 = 19x128, 7296 = 57x128) no longer
-    # collapse to bn=128: a non-dividing bn + cdiv grid caps the
-    # activation re-streaming (the queue-36 residual above the floor)
-    bm, bn = q8._plan_ws(8500, 2432, 2432, 2, 2)[:2]
-    assert bn > 128 and -(-2432 // bn) <= 4, (bm, bn)
-    bm, bn = q8._plan_ws(8500, 2432, 7296, 2, 2)[:2]
-    assert bn > 128 and -(-7296 // bn) <= 12, (bm, bn)
-
-
-@pytest.mark.parametrize("m,k,n,plan", [
-    (100, 256, 384, (64, 256, 128)),    # cdiv stripes: 2, last half-void
-    (70, 384, 392, (64, 128, 128)),     # n not even x128: clipped write
-])
-def test_ws_nondividing_bn_matches_xla(m, k, n, plan, monkeypatch):
-    """bn need not divide N: the final stripe's overhang columns are
-    clipped on the masked output write and never reach a kept column."""
-    monkeypatch.setattr(q8, "_plan_ws", lambda *a, **kw: plan)
-    rng = np.random.default_rng(3)
-    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32) * 0.3)
-    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    ref = np.asarray(q8.q8_matmul_xla(x, jnp.asarray(q), jnp.asarray(s)))
-    out = np.asarray(q8.q8_matmul_ws(x, jnp.asarray(q), jnp.asarray(s)))
-    np.testing.assert_allclose(out, ref, atol=2e-3, rtol=2e-3)
-
-
-def test_ws_int8_nondividing_bn_matches_xla(monkeypatch):
-    monkeypatch.setattr(q8, "_plan_ws",
-                        lambda *a, **kw: (64, 256, 128))
-    rng = np.random.default_rng(4)
-    x = jnp.asarray(rng.standard_normal((100, 256)).astype(np.float32) * .3)
-    w = rng.standard_normal((256, 384)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight_percol(w)
-    ref = np.asarray(q8.q8_ws_int8_xla(x, jnp.asarray(q), jnp.asarray(s),
-                                       slab=128))
-    out = np.asarray(q8.q8_matmul_ws_int8(x, jnp.asarray(q), jnp.asarray(s)))
-    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
-
-
-def test_ws_dispatch_gated(monkeypatch):
-    """q8_dot routes to ws when the shape qualifies; default is auto
-    (queue-36 hardware A/B: ws wins or ties at all 7 DiT linear shapes,
-    sd35-large step 933->843 ms, e2e 19.04->17.69 s)."""
-    assert q8.ws_eligible(8500, 2432, 9728)
-    monkeypatch.setenv("MLIS_Q8_WS", "off")
-    assert not q8.ws_eligible(8500, 2432, 9728)
-    monkeypatch.setenv("MLIS_Q8_WS", "auto")
-    assert q8.ws_eligible(8500, 2432, 9728)
-    assert not q8.ws_eligible(77, 2432, 9728)   # small-M: default grid
-
-
-@pytest.mark.parametrize("m,k,n", [(64, 256, 512), (130, 2432, 512),
-                                   (77, 1024, 128)])
-def test_ws_int8_kernel_matches_xla_emulation(m, k, n):
-    """Weight-stationary int8-MXU kernel (per-column weight scales,
-    per-(token, slab) activation quant) vs its XLA emulation."""
-    rng = np.random.default_rng(9)
-    x = jnp.asarray(rng.standard_normal((m, k)).astype(np.float32) * 0.3)
-    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight_percol(w)
-    qd, sd = jnp.asarray(q), jnp.asarray(s)
-    ref = np.asarray(q8.q8_ws_int8_xla(x, qd, sd))
-    out = np.asarray(q8.q8_matmul_ws_int8(x, qd, sd))
-    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
-
-
-def test_ws_int8_accuracy_vs_float():
-    """Per-column weights + per-(token, slab) activations stay within a
-    few percent of the float matmul (the opt-in speed tier's bound)."""
-    rng = np.random.default_rng(10)
-    x = rng.standard_normal((64, 1024)).astype(np.float32) * 0.3
-    w = rng.standard_normal((1024, 512)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight_percol(w)
-    ref = x @ w
-    out = np.asarray(q8.q8_ws_int8_xla(
-        jnp.asarray(x), jnp.asarray(q), jnp.asarray(s)))
-    rel = np.abs(out - ref).max() / np.abs(ref).max()
-    assert rel < 0.03, rel
-
-
-def test_rs_row_sweep_matches_xla():
-    """Row-sweep geometry (block_n = N, block_k override) vs the XLA
-    dequant reference — the K >> N mlp-down strategy."""
-    rng = np.random.default_rng(6)
-    x = jnp.asarray(rng.standard_normal((200, 1024)).astype(np.float32) * .3)
-    w = rng.standard_normal((1024, 384)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    qd, sd = jnp.asarray(q), jnp.asarray(s)
-    ref = np.asarray(q8.q8_matmul_xla(x, qd, sd))
-    out = np.asarray(q8.q8_matmul(x, qd, sd, block_m=128, block_n=384,
-                                  block_k=256))
-    np.testing.assert_allclose(out, ref, atol=2e-3, rtol=2e-3)
-
-
-def test_large_m_strategy_selection(monkeypatch):
-    """Cost-model dispatch: rs (row-sweep) wins the K >> N mlp-down
-    shapes, ws the N >= K projections; MLIS_Q8_RS gates rs candidacy
-    (default AUTO since the queue-39 hardware A/B — docs/BENCH.md)."""
-    monkeypatch.setenv("MLIS_Q8_WS", "auto")
-    # default: rs auto -> the mlp-down regime routes to rs out of the box
-    monkeypatch.delenv("MLIS_Q8_RS", raising=False)
-    sel = q8.pick_large_m_plan(8500, 9728, 2432, 2)
-    assert sel is not None and sel[0] == "rs"
-    monkeypatch.setenv("MLIS_Q8_RS", "off")
-    sel = q8.pick_large_m_plan(8500, 9728, 2432, 2)
-    assert sel is not None and sel[0] == "ws"
-    monkeypatch.setenv("MLIS_Q8_RS", "auto")
-    sel = q8.pick_large_m_plan(8500, 9728, 2432, 2)   # sd35L mlp-down
-    assert sel is not None and sel[0] == "rs"
-    sel = q8.pick_large_m_plan(8500, 2432, 9728, 2)   # sd35L mlp-up
-    assert sel is not None and sel[0] == "ws"
-    assert q8.pick_large_m_plan(154, 4096, 10240, 2) is None  # small m
-    monkeypatch.setenv("MLIS_Q8_WS", "off")
-    assert q8.pick_large_m_plan(8500, 9728, 2432, 2) is None  # master off
-
-
-def test_percol_from_blocks_roundtrip():
-    """Block->column conversion: normal-ish weights stay under the
-    incremental-noise guard; the dequantized values round-trip within
-    the per-column quantization bound."""
-    rng = np.random.default_rng(11)
-    w = rng.standard_normal((512, 384)).astype(np.float32) * 0.05
-    q, s = q8.quantize_weight(w)
-    qc, sc, ratio = q8.percol_from_blocks(q, s)
-    assert qc.dtype == np.int8 and sc.shape == (384,)
-    assert ratio < q8.PERCOL_MAX_SCALE_RATIO, ratio
-    wd_blocks = (q.astype(np.float32).reshape(4, 128, 384)
-                 * s[:, None, :]).reshape(512, 384)
-    wd_col = qc.astype(np.float32) * sc[None, :]
-    err = np.abs(wd_col - wd_blocks).max(axis=0)
-    assert (err <= sc * 0.5 + 1e-9).all()
-
-
-def test_percol_from_blocks_guard_trips():
-    """Outlier-heavy columns (one block's scale >> the rest) blow past
-    the guard: the weight must stay per-block."""
-    rng = np.random.default_rng(12)
-    w = rng.standard_normal((512, 256)).astype(np.float32) * 0.05
-    w[:128] *= 200.0   # block 0 dominates every column amax
-    q, s = q8.quantize_weight(w)
-    _, _, ratio = q8.percol_from_blocks(q, s)
-    assert ratio > q8.PERCOL_MAX_SCALE_RATIO, ratio
-
-
-def test_percol_eligible_matches_queue38(monkeypatch):
-    """Storage gate mirrors the queue-38 per-shape winners: int8ws for
-    the N >= K projections, per-block (rs regime) for K >> N mlp-down."""
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_RS", "auto")
-    assert q8.percol_eligible(2432, 7296, m_hint=8500)    # sd35L qkv
-    assert q8.percol_eligible(2432, 9728, m_hint=8500)    # mlp-up
-    assert not q8.percol_eligible(9728, 2432, m_hint=8500)  # mlp-dn
-    assert q8.percol_eligible(3072, 9216, m_hint=4608)    # flux qkv
-    assert not q8.percol_eligible(12288, 3072, m_hint=4608)  # flux dn
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "off")
-    assert not q8.percol_eligible(2432, 7296, m_hint=8500)
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "force")
-    assert q8.percol_eligible(9728, 2432, m_hint=8500)
-
-
-def test_percol_strategy_selection(monkeypatch):
-    """pick_large_m_plan(percol=True) adds int8ws candidacy; the dq
-    strategies stay available for per-column weights via broadcast."""
-    monkeypatch.setenv("MLIS_Q8_WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_RS", "auto")
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "auto")
-    sel = q8.pick_large_m_plan(8500, 2432, 7296, 2, percol=True)
-    assert sel is not None and sel[0] == "int8ws"
-    # per-block storage never picks int8ws
-    sel = q8.pick_large_m_plan(8500, 2432, 7296, 2)
-    assert sel is not None and sel[0] != "int8ws"
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "off")
-    sel = q8.pick_large_m_plan(8500, 2432, 7296, 2, percol=True)
-    assert sel is not None and sel[0] != "int8ws"
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "force")
-    sel = q8.pick_large_m_plan(8500, 9728, 2432, 2, percol=True)
-    assert sel is not None and sel[0] == "int8ws"
-
-
-def test_q8_dot_percol_dispatch(monkeypatch):
-    """q8_dot with per-column scales: large-M routes through the int8
-    path (XLA emulation off-TPU, same numerics as the TPU kernel);
-    small-M falls back to dq with broadcast block scales."""
-    monkeypatch.setenv("MLIS_Q8_WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "auto")
-    rng = np.random.default_rng(13)
-    k, n = 512, 384
-    w = rng.standard_normal((k, n)).astype(np.float32) * 0.05
-    qc, sc = q8.quantize_weight_percol(w)
-    qd, sd = jnp.asarray(qc), jnp.asarray(sc)
-    # small M: dq fallback == plain dequant matmul with broadcast scales
-    x_small = jnp.asarray(
-        rng.standard_normal((64, k)).astype(np.float32) * 0.3)
-    out = np.asarray(q8.q8_dot(x_small, qd, sd))
-    s2 = jnp.broadcast_to(sd[None, :], (k // q8.KBLOCK, n))
-    ref = np.asarray(q8.q8_matmul_xla(x_small, qd, s2))
-    np.testing.assert_allclose(out, ref, atol=5e-3, rtol=5e-3)
-    # large M (force int8ws so the tiny K/N shape qualifies): int8 path
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "force")
-    x_big = jnp.asarray(
-        rng.standard_normal((2304, k)).astype(np.float32) * 0.3)
-    out = np.asarray(q8.q8_dot(x_big, qd, sd))
-    ref = np.asarray(q8.q8_ws_int8_xla(x_big, qd, sd))
-    np.testing.assert_allclose(out, ref, atol=1e-4, rtol=1e-4)
-
-
-def test_quantize_linear_weights_percol(monkeypatch):
-    """weights.quantize_linear_weights stores per-column pairs for
-    int8ws-eligible shapes when given a DiT m_hint, per-block otherwise."""
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantize_linear_weights_skips_unaligned_k(bits):
+    """Only linears whose K is a multiple of 128 are quantized; the rest
+    stay in the compute dtype, and every pair is stored per 128-row block."""
     from mlimgsynth_tpu import weights as W
-    from mlimgsynth_tpu.models.blocks import LINEAR_W, ParamSpec
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_RS", "auto")
+    from mlimgsynth_tpu.models.blocks import LINEAR_W, VEC, ParamSpec
     rng = np.random.default_rng(14)
     spec = {
-        "blk.qkv.weight": ParamSpec((2432, 7296), LINEAR_W, jnp.bfloat16),
-        "blk.mlp_dn.weight": ParamSpec((9728, 2432), LINEAR_W,
-                                       jnp.bfloat16),
+        "blk.a.weight": ParamSpec((256, 384), LINEAR_W, jnp.bfloat16),
+        "blk.b.weight": ParamSpec((80, 128), LINEAR_W, jnp.bfloat16),
+        "blk.a.bias": ParamSpec((384,), VEC, jnp.bfloat16),
     }
-    host = {name: (rng.standard_normal(ps.shape).astype(np.float32)
-                   * 0.02).astype(np.float32)
+    host = {name: rng.standard_normal(ps.shape).astype(np.float32) * 0.02
             for name, ps in spec.items()}
-    n_q = W.quantize_linear_weights(host, spec, bits=8,
-                                    percol_m_hint=8500)
-    assert n_q == 2
-    assert host["blk.qkv.weight_scale"].ndim == 1          # per-column
-    assert host["blk.mlp_dn.weight_scale"].ndim == 2       # per-block
-    # no hint (non-DiT families): everything stays per-block
-    host2 = {name: (rng.standard_normal(ps.shape).astype(np.float32)
-                    * 0.02) for name, ps in spec.items()}
-    W.quantize_linear_weights(host2, spec, bits=8)
-    assert host2["blk.qkv.weight_scale"].ndim == 2
-
-
-def test_quantize_linear_weights_percol_group_uniform(monkeypatch):
-    """Per-(K, N) ALL-OR-NONE storage: one outlier-heavy weight keeps its
-    whole shape group per-block, so same-shaped linears across MMDiT
-    blocks always share one scale format (a mixed [N] / [K/128, N] group
-    would break --pp block stacking's shape-uniformity contract)."""
-    from mlimgsynth_tpu import weights as W
-    from mlimgsynth_tpu.models.blocks import LINEAR_W, ParamSpec
-    monkeypatch.setenv("MLIS_Q8_INT8WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_WS", "auto")
-    monkeypatch.setenv("MLIS_Q8_RS", "auto")
-    rng = np.random.default_rng(15)
-    spec = {
-        "blk.0.qkv.weight": ParamSpec((2432, 7296), LINEAR_W,
-                                      jnp.bfloat16),
-        "blk.1.qkv.weight": ParamSpec((2432, 7296), LINEAR_W,
-                                      jnp.bfloat16),
-    }
-    clean = (rng.standard_normal((2432, 7296)) * 0.02).astype(np.float32)
-    outlier = (rng.standard_normal((2432, 7296)) * 0.02).astype(np.float32)
-    outlier[:128] *= 200.0   # block 0 dominates every column amax
-    host = {"blk.0.qkv.weight": clean.copy(),
-            "blk.1.qkv.weight": outlier}
-    n_q = W.quantize_linear_weights(host, spec, bits=8,
-                                    percol_m_hint=8500)
-    assert n_q == 2
-    # the outlier member trips the guard -> the WHOLE group is per-block
-    assert host["blk.0.qkv.weight_scale"].ndim == 2
-    assert host["blk.1.qkv.weight_scale"].ndim == 2
-    # all-clean group converts as before
-    host2 = {"blk.0.qkv.weight": clean.copy(),
-             "blk.1.qkv.weight": clean.copy()}
-    W.quantize_linear_weights(host2, spec, bits=8, percol_m_hint=8500)
-    assert host2["blk.0.qkv.weight_scale"].ndim == 1
-    assert host2["blk.1.qkv.weight_scale"].ndim == 1
-
-
-def test_dit_m_hint_shared_formula():
-    """The ONE m_hint formula every caller shares: MMDiT stacks
-    cond/uncond (2x); flux runs 1 NFE/step (no doubling)."""
-    assert q8.dit_m_hint(1024, 1024) == 2 * (4096 + 256)
-    assert q8.dit_m_hint(1024, 1024, flux=True) == 4096 + 256
-    assert q8.dit_m_hint(512, 512, flux=True) == 1024 + 256
+    assert W.quantize_linear_weights(host, spec, bits=bits) == 1
+    tag = f"blk.a.weight_q{bits}"
+    assert tag in host and "blk.a.weight" not in host
+    assert host["blk.a.weight_scale"].shape == (2, 384)
+    assert host[tag].shape == ((256 if bits == 8 else 128), 384)
+    assert "blk.b.weight" in host and "blk.a.bias" in host
